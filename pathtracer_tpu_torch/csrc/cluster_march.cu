@@ -1,0 +1,172 @@
+// Cluster march: the closest-hit kernel of the culled bunny render.
+//
+// Replaces the TPU kernel `_march_kernel` of pathtracer_tpu/ops/cluster_sweep.py
+// (a Pallas kernel launched by `cluster_march`). It computes the same
+// function, not the same blocks: one thread block per chunk of `ray_tile`
+// rays (128 on the main path), one thread per ray. The chunk walks its
+// regular clusters in ascending chunk-entry order (`ids`/`ents`, sorted by
+// the caller, with at least one +BIG sentinel slot at the end). Per slot the
+// block copies the cluster's 12 x 4K column block and masks into shared
+// memory; every thread forms its ray's four pair scalars per primitive, runs
+// the sphere or triangle epilogue, and merges into its running best with a
+// strict `<` (the lowest index wins ties, as in the reference). After each
+// slot the block reduces max(min(t_best, gate)) over its rays and stops once
+// that is not beyond the next slot's entry: no unvisited cluster can then
+// beat any ray. The reference's W-wide windows are bit-identical to this
+// one-cluster-per-slot march (cluster_sweep.py, _march_kernel's wide-visit
+// note), so the port keeps only the latter.
+//
+// What bounds it on an H100: per-chunk latency. A sorted chunk marches only a
+// few clusters (about 2.5 on the bunny), so a block does a few small shared
+// memory loads and ~K x 100 scalar flops per thread between block-wide
+// barriers; the kernel is far from the FLOP and memory-bandwidth roofs, and
+// the launch is ~450 short blocks at the main path's 57,600 rays. The design
+// keeps the whole march in one launch with no host round trip per slot.
+// Tensor cores (wgmma), TMA copies of the column blocks and a persistent
+// grid are left to later work.
+//
+// Arithmetic: every pair scalar is summed left to right over the 12
+// features and the library is built with --fmad=false, so products and sums
+// round exactly like the separate PyTorch ops of the plain twin
+// (`march_reference` in ops/cluster_sweep.py); divisions and square roots
+// are IEEE (no fast math).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kBig = 3.0e38f;
+constexpr int kFeat = 12;
+constexpr int kOuts = 4;
+
+// Max over the block of `v`; every thread gets the result. `red` holds one
+// float per warp.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  __syncthreads();  // the previous call's readers are done with `red`
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < n_warps; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+__global__ void __launch_bounds__(1024) cluster_march_kernel(
+    const float* __restrict__ phi, const float* __restrict__ a,
+    const float* __restrict__ gate, const int* __restrict__ ids,
+    const float* __restrict__ ents, int n_slots,
+    const float* __restrict__ cols, const int* __restrict__ is_sphere,
+    const int* __restrict__ valid_row, const int* __restrict__ ctype, int K,
+    float t_min, float t_max, float* __restrict__ t_out,
+    int* __restrict__ best_out, int* __restrict__ slots_out) {
+  extern __shared__ float smem[];
+  __shared__ float s_red[32];
+  const int width = kFeat * kOuts * K;  // floats per cluster column block
+  float* s_cols = smem;
+  int* s_sph = reinterpret_cast<int*>(smem + width);
+  int* s_valid = s_sph + K;
+
+  const int chunk = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n = blockDim.x;
+  const long long r = static_cast<long long>(chunk) * n + tid;
+
+  float p[kFeat];
+#pragma unroll
+  for (int f = 0; f < kFeat; ++f) p[f] = phi[r * kFeat + f];
+  const float ai = a[r];
+  const float inv_a = 1.0f / ai;
+  const float g = gate[r];
+  float t_acc = kBig;
+  int b_acc = -1;
+
+  const int* ids_c = ids + static_cast<long long>(chunk) * n_slots;
+  const float* ents_c = ents + static_cast<long long>(chunk) * n_slots;
+  int j = 0;
+  for (; j < n_slots; ++j) {
+    const float m = block_max(fminf(t_acc, g), s_red);
+    if (!(m > ents_c[j])) break;  // uniform across the block
+    const int c = ids_c[j];
+    const float* src = cols + static_cast<long long>(c) * width;
+    for (int i = tid; i < width; i += n) s_cols[i] = src[i];
+    for (int i = tid; i < K; i += n) {
+      s_sph[i] = is_sphere[c * K + i];
+      s_valid[i] = valid_row[c * K + i];
+    }
+    __syncthreads();
+    const int ct = ctype[c];  // 0 mixed, 1 all-sphere, 2 all-triangle
+    for (int k = 0; k < K; ++k) {
+      if (s_valid[k] == 0) continue;
+      float S[kOuts];
+#pragma unroll
+      for (int o = 0; o < kOuts; ++o) {
+        const float* col = s_cols + o * K + k;  // feature f at f * kOuts * K
+        float s = p[0] * col[0];
+#pragma unroll
+        for (int f = 1; f < kFeat; ++f) s = s + p[f] * col[f * kOuts * K];
+        S[o] = s;
+      }
+      const bool sph = (ct == 1) || (ct == 0 && s_sph[k] != 0);
+      float t;
+      bool hit;
+      if (sph) {
+        const float B = S[0], C0 = S[1];
+        const float disc = B * B - ai * C0;
+        const float sqrt_d = disc > 0.0f ? sqrtf(disc) : 0.0f;
+        const float root0 = (-B - sqrt_d) * inv_a;
+        const float root1 = (-B + sqrt_d) * inv_a;
+        const bool ok0 = !((root0 < t_min) || (t_max < root0));
+        const bool ok1 = !((root1 < t_min) || (t_max < root1));
+        t = ok0 ? root0 : root1;
+        hit = (disc >= 0.0f) && (ok0 || ok1);
+      } else {
+        const float det = S[0];
+        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+        t = S[1] * inv_det;
+        const float b1 = S[2] * inv_det;
+        const float b2 = S[3] * inv_det;
+        hit = !((det == 0.0f) || (b1 <= 0.0f) || (b2 <= 0.0f) ||
+                (b1 + b2 >= 1.0f) || (t <= t_min) || (t >= t_max));
+      }
+      if (hit && t < t_acc) {
+        t_acc = t;
+        b_acc = c * K + k;
+      }
+    }
+    __syncthreads();  // all reads of this slot's block precede the next load
+  }
+  t_out[r] = t_acc;
+  best_out[r] = b_acc;
+  if (tid == 0) slots_out[chunk] = j;
+}
+
+}  // namespace
+
+// Launches the march on `stream`; returns the cudaError_t of the launch (0 on
+// success). Shapes: phi (n_chunks*ray_tile, 12); a, gate, t_out, best_out
+// (n_chunks*ray_tile,); ids, ents (n_chunks, n_slots); cols (C_tot, 12, 4K);
+// is_sphere, valid_row (C_tot, K); ctype (C_tot,); slots_out (n_chunks,).
+extern "C" int cluster_march_launch(
+    const float* phi, const float* a, const float* gate, const int* ids,
+    const float* ents, int n_chunks, int n_slots, int ray_tile,
+    const float* cols, const int* is_sphere, const int* valid_row,
+    const int* ctype, int K, float t_min, float t_max, float* t_out,
+    int* best_out, int* slots_out, void* stream) {
+  if (n_chunks == 0) return 0;
+  const size_t smem = static_cast<size_t>(kFeat * kOuts * K + 2 * K) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cluster_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cluster_march_kernel<<<n_chunks, ray_tile, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      phi, a, gate, ids, ents, n_slots, cols, is_sphere, valid_row, ctype, K,
+      t_min, t_max, t_out, best_out, slots_out);
+  return static_cast<int>(cudaGetLastError());
+}

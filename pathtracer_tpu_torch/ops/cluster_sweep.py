@@ -1,0 +1,342 @@
+"""Cluster-culled closest-hit: ray binning by sort + the march kernel
+(``ops/cluster_sweep.py::cluster_march``).
+
+Per query:
+
+1. cull: slab-test every ray against the regular cluster AABBs, giving
+   conservative entry distances (C_reg, R);
+2. bin: one sort groups rays by (nearest, last) touched cluster; dead and
+   untouched lanes sort last;
+3. order: each chunk of ``ray_tile`` rays gets its clusters in ascending
+   chunk-entry order, plus a +BIG sentinel slot; each lane gets a stop gate
+   (its farthest touched entry, nudged up);
+4. march: one launch of the CUDA kernel (``csrc/cluster_march.cu``) walks
+   every chunk's order until no remaining cluster can beat any lane;
+5. residual: the huge prims (backdrop spheres) are swept densely for every
+   ray and merged; a cluster hit must beat the residual strictly;
+6. unsort by ray id, unless the caller keeps the sorted order
+   (``extras``, the sorted-wavefront integrator).
+
+Exact: each chunk stops only once every lane's best hit precedes all its
+unvisited clusters. Ties between different primitives at bit-equal t may
+pick another winner than the dense sweep's lowest-index rule.
+
+The march has two implementations: the CUDA kernel for tensors on a GPU,
+and ``march_reference``, its plain PyTorch twin, for tensors on the CPU.
+``march`` picks by device only; on a GPU it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pathtracer_tpu_torch.core import vec
+from pathtracer_tpu_torch.ops import _cuda_build
+from pathtracer_tpu_torch.ops.clusters import K_RES, ClusterTables
+from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, FEAT, OUTS,
+                                                   _epilogue, contract,
+                                                   ray_features)
+
+DEF_RAY_TILE = 128
+
+# Conservative shrink of cluster entry distances: slab-test and epilogue
+# arithmetic differ at ulp level, so a hit exactly on a cluster boundary
+# could otherwise be ordered wrongly.
+_ENTRY_MARGIN = 1e-4
+
+# Launches of the CUDA march kernel in this process (the wrapper adds one per
+# launch and nowhere else); callers reset it to 0 to count a run.
+MARCH_LAUNCHES = 0
+
+
+def _cull_T(o, d, active, cmin, cmax, t_min):
+    """Conservative per-(cluster, ray) entry distances, (C_reg, R) f32;
+    BIG where the slab test misses or the ray is inactive. NaN-dropping
+    selects (``where(near > tn, near, tn)``) let ``0 * inf`` fall through
+    to the running bound, so d == 0 components are safe."""
+    inv = 1.0 / d
+    shape = (cmin.shape[0], o.shape[0])
+    tn = torch.full(shape, t_min, dtype=torch.float32, device=o.device)
+    tf = torch.full(shape, BIG, dtype=torch.float32, device=o.device)
+    for ax in range(3):
+        inv_ax = inv[None, :, ax]
+        lo = (cmin[:, ax:ax + 1] - o[None, :, ax]) * inv_ax
+        hi = (cmax[:, ax:ax + 1] - o[None, :, ax]) * inv_ax
+        swap = inv_ax < 0.0
+        near = torch.where(swap, hi, lo)
+        far = torch.where(swap, lo, hi)
+        tn = torch.where(near > tn, near, tn)
+        tf = torch.where(far < tf, far, tf)
+    hit = ~(tf < tn) & active[None, :]
+    entry = tn - (_ENTRY_MARGIN * torch.abs(tn) + 1e-6)
+    return torch.where(hit, entry, BIG)
+
+
+def march_reference(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
+                    ctype, K: int, t_min: float, t_max: float,
+                    ray_tile: int):
+    """Plain PyTorch twin of the CUDA march kernel: same inputs, same
+    (t_best (R,) f32, best (R,) int32, slots (n_chunks,) int32).
+
+    Loops over order slots, vectorised over the chunks still marching. A
+    chunk marches slot j while max over its lanes of min(t_best, gate)
+    exceeds ents[j]; slot j sweeps cluster ids[j] with the pair-scalar
+    contraction and the sphere or triangle epilogue (by ``ctype``), and a
+    lane takes the cluster's first minimum only where it is strictly
+    better."""
+    n_chunks, n_slots = ids.shape
+    dev = phi.device
+    P = phi.view(n_chunks, ray_tile, FEAT)
+    A = a.view(n_chunks, ray_tile)
+    G = gate.view(n_chunks, ray_tile)
+    t_acc = torch.full((n_chunks, ray_tile), BIG, dtype=torch.float32,
+                       device=dev)
+    b_acc = torch.full((n_chunks, ray_tile), -1, dtype=torch.int32,
+                       device=dev)
+    slots = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
+    marching = torch.ones(n_chunks, dtype=torch.bool, device=dev)
+    for j in range(n_slots):
+        m = torch.amax(torch.minimum(t_acc, G), dim=1)
+        marching = marching & (m > ents[:, j])
+        live = torch.nonzero(marching).squeeze(1)
+        if live.numel() == 0:
+            break
+        slots += marching.to(torch.int32)
+        c = ids[live, j].long()
+        S = contract(P[live], cols[c])                   # (L, T, OUTS*K)
+        B, C0 = S[..., 0:K], S[..., K:2 * K]
+        D, E = S[..., 2 * K:3 * K], S[..., 3 * K:4 * K]
+        # by cluster type: 1 all-sphere, 2 all-triangle, 0 per prim
+        ct = ctype[c][:, None, None]
+        sph = (ct == 1) | ((ct == 0) & (is_sphere[c][:, None, :] != 0))
+        t_eff = _epilogue(B, C0, D, E, A[live][:, :, None], sph,
+                          valid_row[c][:, None, :] != 0, t_min, t_max)
+        local_j = torch.argmin(t_eff, dim=2)   # first minimum
+        local_t = torch.amin(t_eff, dim=2)
+        t_prev = t_acc[live]
+        better = local_t < t_prev
+        glob = (c[:, None] * K + local_j).to(torch.int32)
+        t_acc[live] = torch.where(better, local_t, t_prev)
+        b_acc[live] = torch.where(better, glob, b_acc[live])
+    return t_acc.reshape(-1), b_acc.reshape(-1), slots
+
+
+def _check(x, name, dtype, shape):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
+                K, t_min, t_max, ray_tile):
+    global MARCH_LAUNCHES
+    n_chunks, n_slots = ids.shape
+    R = n_chunks * ray_tile
+    C_tot = cols.shape[0]
+    if ray_tile % 32 != 0 or not 0 < ray_tile <= 1024:
+        raise ValueError("ray_tile must be a multiple of 32 up to 1024")
+    for name, x, dtype, shape in (
+            ("phi", phi, torch.float32, (R, FEAT)),
+            ("a", a, torch.float32, (R,)),
+            ("gate", gate, torch.float32, (R,)),
+            ("ids", ids, torch.int32, (n_chunks, n_slots)),
+            ("ents", ents, torch.float32, (n_chunks, n_slots)),
+            ("cols", cols, torch.float32, (C_tot, FEAT, OUTS * K)),
+            ("is_sphere", is_sphere, torch.int32, (C_tot, K)),
+            ("valid_row", valid_row, torch.int32, (C_tot, K)),
+            ("ctype", ctype, torch.int32, (C_tot,))):
+        _check(x, name, dtype, shape)
+        if x.device != phi.device:
+            raise ValueError(f"{name} is on {x.device}, phi on {phi.device}")
+    lib = _cuda_build.load("cluster_march")
+    fn = lib.cluster_march_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+                   + [ctypes.c_void_p] * 4)
+    t_out = torch.empty(R, dtype=torch.float32, device=phi.device)
+    best = torch.empty(R, dtype=torch.int32, device=phi.device)
+    slots = torch.empty(n_chunks, dtype=torch.int32, device=phi.device)
+    stream = torch.cuda.current_stream(phi.device).cuda_stream
+    err = fn(phi.data_ptr(), a.data_ptr(), gate.data_ptr(), ids.data_ptr(),
+             ents.data_ptr(), n_chunks, n_slots, ray_tile, cols.data_ptr(),
+             is_sphere.data_ptr(), valid_row.data_ptr(), ctype.data_ptr(),
+             K, t_min, t_max, t_out.data_ptr(), best.data_ptr(),
+             slots.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_march kernel launch failed: CUDA error "
+                           f"{err}")
+    MARCH_LAUNCHES += 1
+    return t_out, best, slots
+
+
+def march(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
+          K: int, t_min: float, t_max: float, ray_tile: int):
+    """The march: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors. Returns (t_best (R,) f32, best (R,) int32, slots (n_chunks,)
+    int32); ``best`` is -1 where nothing was hit."""
+    if phi.device.type == "cuda":
+        return _march_cuda(phi, a, gate, ids, ents, cols, is_sphere,
+                           valid_row, ctype, K, t_min, t_max, ray_tile)
+    if phi.device.type == "cpu":
+        return march_reference(phi, a, gate, ids, ents, cols, is_sphere,
+                               valid_row, ctype, K, t_min, t_max, ray_tile)
+    raise ValueError(f"no cluster march for device {phi.device}")
+
+
+def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
+                 active=None, extras=None, t_max=None):
+    """Steps 1-3 of the query (cull, bin, order) and the residual sweep.
+
+    Returns a dict with the sorted rays (``o``, ``d``, ``active``,
+    ``active0`` in caller order, ``rid`` the caller position of each
+    sorted lane, ``extras``), the kernel inputs
+    (``args``: phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
+    K, t_min, t_max, ray_tile) and the residual winners (``t_res``,
+    ``b_res``)."""
+    if t_max is None:
+        t_max = BIG
+    r = o.shape[0]
+    C_reg, K = ct.C_reg, ct.K
+    dev = o.device
+    r_pad = -(-r // ray_tile) * ray_tile
+    n_chunks = r_pad // ray_tile
+    keep_sorted = extras is not None
+    if keep_sorted and r_pad != r:
+        raise ValueError("extras mode needs a chunk-aligned wavefront")
+    if r_pad != r:
+        o = torch.cat([o, o.new_zeros((r_pad - r, 3))])
+        d = torch.cat([d, d.new_zeros((r_pad - r, 3))])
+        if active is not None:
+            active = torch.cat([active, active.new_zeros(r_pad - r)])
+    nonzero = torch.any(d != 0.0, dim=1)
+    active = nonzero if active is None else active & nonzero
+    active0 = active
+    t_min = float(t_min)
+
+    entry = _cull_T(o, d, active, ct.cmin, ct.cmax, t_min)   # (C_reg, R)
+    # two-level bin key (nearest touched cluster, last touched cluster);
+    # untouched and dead lanes sort strictly last
+    touched = entry < BIG * 0.5
+    kmin = torch.argmin(entry, dim=0)
+    any_t = torch.any(touched, dim=0)
+    klast = C_reg - 1 - torch.argmax(touched.flip(0).to(torch.uint8), dim=0)
+    key = torch.where(any_t, kmin * (C_reg + 1) + klast, C_reg * (C_reg + 2))
+    order = torch.sort(key, stable=True).indices
+    o, d, active = o[order], d[order], active[order]
+    rid = order
+    entry = entry[:, order]
+    if keep_sorted:
+        extras = tuple(e[order] for e in extras)
+
+    d_eff = torch.where(active[:, None], d, 0.0)
+    phi = ray_features(o, d_eff)
+    a = vec.dot(d_eff, d_eff)
+    a = torch.where(a == 0.0, 1.0, a)
+    # per-lane stop gate: the farthest touched-cluster entry, nudged so the
+    # lane's own last cluster is still processed; -BIG for lanes touching
+    # no regular cluster (and inactive lanes), which drive no march at all
+    gate = torch.amax(torch.where(entry >= BIG * 0.5, -BIG, entry), dim=0)
+    gate = gate * (1.0 + 1e-5) + 1e-5
+    if t_max < BIG * 0.5:
+        gate = torch.clamp(gate, max=t_max)
+    gate = torch.where(active, gate, -BIG)
+
+    # per-chunk ascending cluster order by chunk entry, + one sentinel slot
+    chunk_entry = entry.reshape(C_reg, n_chunks, ray_tile).amin(dim=2).T
+    ents_sorted, ids_sorted = torch.sort(chunk_entry, dim=1, stable=True)
+    ids = torch.cat([ids_sorted.to(torch.int32),
+                     torch.zeros((n_chunks, 1), dtype=torch.int32,
+                                 device=dev)], dim=1)
+    ents = torch.cat([ents_sorted,
+                      torch.full((n_chunks, 1), BIG, dtype=torch.float32,
+                                 device=dev)], dim=1)
+
+    # residual tile: only its last K_RES columns can hold huge prims; swept
+    # densely with rays on the last axis
+    colsK = ct.cols[C_reg]                               # (FEAT, OUTS*K)
+    res_cols = torch.cat([colsK[:, k * K + K - K_RES:(k + 1) * K]
+                          for k in range(OUTS)], dim=1)  # (FEAT, OUTS*K_RES)
+    S_res = contract(phi, res_cols).T                    # (OUTS*K_RES, R)
+    t_eff_res = _epilogue(
+        S_res[0:K_RES], S_res[K_RES:2 * K_RES],
+        S_res[2 * K_RES:3 * K_RES], S_res[3 * K_RES:4 * K_RES], a[None, :],
+        ct.is_sphere[C_reg, 0, K - K_RES:, None] != 0,
+        ct.valid_row[C_reg, 0, K - K_RES:, None] != 0, t_min, float(t_max))
+    j_res = torch.argmin(t_eff_res, dim=0)
+    t_res = torch.amin(t_eff_res, dim=0)
+    b_res = torch.where(t_res < BIG * 0.5, C_reg * K + (K - K_RES) + j_res,
+                        -1).to(torch.int32)
+
+    C_tot = ct.cols.shape[0]
+    args = (phi.contiguous(), a.contiguous(), gate.contiguous(),
+            ids.contiguous(), ents.contiguous(), ct.cols,
+            ct.is_sphere.view(C_tot, K), ct.valid_row.view(C_tot, K),
+            ct.ctype, K, t_min, float(t_max), ray_tile)
+    return dict(o=o, d=d, active=active, active0=active0, rid=rid,
+                extras=extras, args=args, t_res=t_res, b_res=b_res, r=r)
+
+
+def cluster_march(ct: ClusterTables, o, d, t_min,
+                  ray_tile: int = DEF_RAY_TILE, active=None, extras=None,
+                  t_max: float = None):
+    """Single-pass culled closest-hit: (prim_idx, t, valid), each (R,).
+
+    Indices address ``ct.scene`` (the reordered scene). ``active`` ((R,)
+    bool): lanes to query; inactive lanes resolve as misses. ``extras``
+    (tuple of (R,) tensors, needs R % ray_tile == 0): the caller's per-ray
+    state rides the binning sort and the result stays in sorted order;
+    returns ``(idx, t, valid, o_s, d_s, active_s, extras_s, pair_tests)``,
+    with ``pair_tests`` the executed (ray, prim-slot) tests. ``t_max``:
+    hits at or beyond it are rejected and clusters entered beyond it are
+    not marched."""
+    q = march_inputs(ct, o, d, t_min, ray_tile=ray_tile, active=active,
+                     extras=extras, t_max=t_max)
+    t_best, best, slots = march(*q["args"])
+    pair_tests = float(slots.sum().item()) * ct.K * ray_tile
+
+    # merge the residual (a cluster hit must beat it strictly)
+    use_k = t_best < q["t_res"]
+    t_best = torch.where(use_k, t_best, q["t_res"])
+    best = torch.where(use_k, best, q["b_res"]).to(torch.int64)
+
+    if extras is not None:
+        # dead lanes can register pseudo-hits on enclosing residual spheres
+        # (a is forced to 1); they are misses
+        found = (best >= 0) & q["active"]
+        idx = torch.where(found, best, 0)
+        return (idx, t_best, found, q["o"], q["d"], q["active"], q["extras"],
+                pair_tests)
+
+    rid = q["rid"]
+    t_best = torch.empty_like(t_best).index_put_((rid,), t_best)
+    best = torch.empty_like(best).index_put_((rid,), best)
+    r = q["r"]
+    t_best = t_best[:r]
+    best = best[:r]
+    found = (best >= 0) & q["active0"][:r]
+    return torch.where(found, best, 0), t_best, found
+
+
+def make_cluster_closest_hit(ct: ClusterTables, t_min: float):
+    """Closest-hit factory over prebuilt cluster tables. ``closest(o, d)``
+    returns (idx, t, valid) in caller order; ``closest.query_sorted(o, d,
+    active, extras)`` is the sorted-wavefront protocol (see
+    :func:`cluster_march`). Indices refer to ``ct.scene``."""
+    def closest(o, d):
+        return cluster_march(ct, o, d, float(t_min))
+
+    def query_sorted(o, d, active, extras):
+        return cluster_march(ct, o, d, float(t_min), active=active,
+                             extras=extras)
+
+    closest.handles_dead = True
+    closest.query_sorted = query_sorted
+    closest.ray_tile = DEF_RAY_TILE
+    return closest

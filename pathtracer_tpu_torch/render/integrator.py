@@ -1,0 +1,132 @@
+"""Wavefront path integrator (``render/integrator.py::trace``).
+
+The bounce loop is a Python ``while`` over a whole wavefront that exits
+once no lane is alive. Exit semantics follow the reference:
+
+- miss         -> sky(last direction) * attenuation
+- absorbed     -> black
+- depth out    -> sky(last direction) * attenuation (the reference quirk;
+                  ``terminate_black`` flips it to black)
+
+Sorted-wavefront mode (the cluster march's ``query_sorted``, R a multiple
+of the chunk): the march's binning sort carries the per-ray state and the
+wavefront stays in march order between bounces; one final unsort by ray id
+restores pixel order. Otherwise each bounce queries in caller order.
+Random draws are keyed by ray id, so they do not depend on lane order.
+"""
+from __future__ import annotations
+
+import torch
+
+from pathtracer_tpu_torch.core import random as prng
+from pathtracer_tpu_torch.core import vec
+from pathtracer_tpu_torch.ops import intersect
+from pathtracer_tpu_torch.scene import materials
+from pathtracer_tpu_torch.scene.scene import Scene
+
+SKY_WHITE = (1.0, 1.0, 1.0)
+SKY_BLUE = (0.5, 0.7, 1.0)
+
+_RID_BITS = 29   # ray ids share one int32 payload with two flags
+
+
+def sky_color(direction):
+    """Vertical white->blue gradient on the unit direction."""
+    unit = vec.normalize(direction)
+    t = 0.5 * (unit[..., 1] + 1.0)
+    white = direction.new_tensor(SKY_WHITE)
+    blue = direction.new_tensor(SKY_BLUE)
+    return (1.0 - t)[..., None] * white + t[..., None] * blue
+
+
+def trace(scene: Scene, origin, direction, key, max_depth: int,
+          closest_hit_fn, t_min: float = 1e-3, sky: bool = True,
+          terminate_black: bool = False):
+    """Trace a wavefront of rays; returns (radiance (N, 3), (closest-hit
+    queries executed, march pair tests)).
+
+    ``key`` is a threefry key (``core/random``); ``closest_hit_fn(o, d) ->
+    (prim_idx, t, valid)`` over ``scene``'s rows, optionally with
+    ``query_sorted`` and ``ray_tile`` (the cluster march). NEE and Russian
+    roulette are not ported (the renderer rejects them)."""
+    n_rays = origin.shape[0]
+    dev = origin.device
+    handles_dead = getattr(closest_hit_fn, "handles_dead", False)
+    query_sorted = getattr(closest_hit_fn, "query_sorted", None)
+    tile = getattr(closest_hit_fn, "ray_tile", 1)
+    sorted_mode = query_sorted is not None and n_rays % tile == 0
+    packed = intersect.packed_hit_fields(scene)
+    # emitted radiance stays zero without emissive prims: skip carrying it
+    carry_emit = scene.num_lights > 0
+
+    o, d = origin, direction
+    atten = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
+    absorbed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+    emitted_acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    spec_prev = torch.ones(n_rays, dtype=torch.bool, device=dev)
+    rid = torch.arange(n_rays, dtype=torch.int32, device=dev)
+    n_queries = 0.0
+    n_pairs = 0.0
+
+    depth = 0
+    while depth < max_depth and bool(alive.any()):
+        bkey = prng.fold_in(key, depth)
+        n_queries += (float(alive.sum()) if (handles_dead or sorted_mode)
+                      else float(n_rays))
+        if sorted_mode:
+            # ray id and flags share one int32 payload of the sort
+            flags = (rid | (absorbed.to(torch.int32) << _RID_BITS)
+                     | (spec_prev.to(torch.int32) << (_RID_BITS + 1)))
+            extras = (atten[:, 0], atten[:, 1], atten[:, 2], flags)
+            if carry_emit:
+                extras += tuple(emitted_acc.unbind(1))
+            idx, _, hit_valid, o, d, alive, ex, pairs = query_sorted(
+                o, d, alive, extras)
+            n_pairs += pairs
+            atten = torch.stack(ex[0:3], dim=1)
+            flags = ex[3]
+            rid = flags & ((1 << _RID_BITS) - 1)
+            absorbed = ((flags >> _RID_BITS) & 1) != 0
+            spec_prev = ((flags >> (_RID_BITS + 1)) & 1) != 0
+            if carry_emit:
+                emitted_acc = torch.stack(ex[4:7], dim=1)
+        else:
+            d_query = torch.where(alive[:, None], d, 0.0) if handles_dead \
+                else d
+            idx, _, hit_valid = closest_hit_fn(o, d_query)
+        uniforms = prng.uniform_by_ray(bkey, rid, 6)
+        rec = intersect.hit_records_from_prims(
+            scene, idx, o, d, t_min, intersect.BIG_T, hit_valid,
+            packed=packed)
+        sc = materials.scatter(scene, rec, d, uniforms)
+
+        active = alive & hit_valid
+        hit_emitter = active & sc.is_emissive
+        emitted_acc = emitted_acc + torch.where(
+            hit_emitter[:, None], atten * sc.emitted, 0.0)
+        newly_absorbed = active & ~sc.is_emissive & ~sc.ok
+        absorbed = absorbed | newly_absorbed | hit_emitter
+        step = active & sc.ok & ~sc.is_emissive
+        o = torch.where(step[:, None], rec.p, o)
+        d = torch.where(step[:, None], sc.direction, d)
+        atten = torch.where(step[:, None], atten * sc.attenuation, atten)
+        # a miss leaves the loop and keeps its last direction for the sky
+        alive = alive & hit_valid & step
+        depth += 1
+
+    if sky:
+        background = sky_color(d)
+    else:
+        background = torch.zeros((n_rays, 3), dtype=torch.float32,
+                                 device=dev)
+    # depth-exhausted rays are still alive: sky * attenuation, as in the
+    # reference, unless terminate_black
+    dead = absorbed | alive if terminate_black else absorbed
+    radiance = emitted_acc + torch.where(dead[:, None], 0.0,
+                                         atten * background)
+    if sorted_mode:
+        # back to pixel order by ray id
+        radiance = torch.empty_like(radiance).index_put_((rid.long(),),
+                                                         radiance)
+    return radiance, (n_queries, n_pairs)

@@ -1,0 +1,168 @@
+"""Scene container: SoA primitive + material tables (``scene/scene.py``).
+
+One row per primitive with both sphere and triangle fields, selected by a
+type tag; the same field names, dtypes and padding rules as the reference,
+held as torch tensors on one device.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+PRIM_SPHERE = 1
+PRIM_TRIANGLE = 3
+
+MAT_LAMBERTIAN = 1
+MAT_METAL = 2
+MAT_DIELECTRIC = 4
+MAT_EMISSIVE = 8
+
+
+class Scene(NamedTuple):
+    """SoA scene, N primitives and M materials. Sphere rows: ``v0`` is the
+    center and ``radius`` is signed. Triangle rows: ``v0``, edges ``e1``,
+    ``e2`` and the unit face normal."""
+    prim_type: torch.Tensor   # (N,) int32
+    v0: torch.Tensor          # (N, 3)
+    e1: torch.Tensor          # (N, 3)
+    e2: torch.Tensor          # (N, 3)
+    radius: torch.Tensor      # (N,)
+    tri_normal: torch.Tensor  # (N, 3)
+    prim_mat: torch.Tensor    # (N,) int32
+    box_min: torch.Tensor     # (N, 3)
+    box_max: torch.Tensor     # (N, 3)
+
+    mat_type: torch.Tensor    # (M,) int32
+    albedo: torch.Tensor      # (M, 3)
+    fuzz: torch.Tensor        # (M,)
+    ir: torch.Tensor          # (M,)
+    emit: torch.Tensor        # (M, 3)
+    tex_id: torch.Tensor      # (M,) int32, -1 = plain albedo
+
+    world_min: torch.Tensor   # (3,)
+    world_max: torch.Tensor   # (3,)
+    light_idx: torch.Tensor   # (L,) int32 emissive prim ids
+    textures: torch.Tensor    # (K, TH, TW, 3); empty -> (0, 1, 1, 3)
+
+    @property
+    def num_prims(self) -> int:
+        return self.prim_type.shape[0]
+
+    @property
+    def num_lights(self) -> int:
+        return self.light_idx.shape[0]
+
+    @property
+    def num_materials(self) -> int:
+        return self.mat_type.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.v0.device
+
+    def to(self, device) -> "Scene":
+        return Scene(*(x.to(device) for x in self))
+
+
+def scene_from_numpy(fields: dict, device) -> Scene:
+    """Build a Scene from a dict of numpy arrays keyed by field name."""
+    return Scene(**{name: torch.from_numpy(np.array(fields[name])).to(device)
+                    for name in Scene._fields})
+
+
+class SceneBuilder:
+    """Host-side scene assembly in numpy, as in the reference's
+    SceneBuilder, producing a Scene on ``device``."""
+
+    def __init__(self):
+        self._prims = []      # (type, v0, e1, e2, radius, normal, mat)
+        self._mats = []       # (type, albedo, fuzz, ir, emit, tex_id)
+
+    def add_lambertian(self, albedo) -> int:
+        return self._add_mat(MAT_LAMBERTIAN, albedo, 0.0, 0.0, (0, 0, 0))
+
+    def add_metal(self, albedo, fuzz: float) -> int:
+        return self._add_mat(MAT_METAL, albedo, min(fuzz, 1.0), 0.0,
+                             (0, 0, 0))
+
+    def add_dielectric(self, ir: float) -> int:
+        return self._add_mat(MAT_DIELECTRIC, (0, 0, 0), 0.0, ir, (0, 0, 0))
+
+    def add_emissive(self, emit) -> int:
+        return self._add_mat(MAT_EMISSIVE, (0, 0, 0), 0.0, 0.0, emit)
+
+    def _add_mat(self, mtype, albedo, fuzz, ir, emit) -> int:
+        self._mats.append((mtype, np.asarray(albedo, np.float32),
+                           float(fuzz), float(ir),
+                           np.asarray(emit, np.float32), -1))
+        return len(self._mats) - 1
+
+    def add_sphere(self, center, radius: float, mat: int):
+        """Signed radius; AABB from |radius|."""
+        c = np.asarray(center, np.float32)
+        self._prims.append((PRIM_SPHERE, c, np.zeros(3, np.float32),
+                            np.zeros(3, np.float32), np.float32(radius),
+                            np.zeros(3, np.float32), int(mat)))
+
+    def add_triangle(self, v0, v1, v2, mat: int):
+        """Precomputes edges and the unit face normal."""
+        v0 = np.asarray(v0, np.float32)
+        v1 = np.asarray(v1, np.float32)
+        v2 = np.asarray(v2, np.float32)
+        e1, e2 = v1 - v0, v2 - v0
+        n = np.cross(e1, e2)
+        norm = np.linalg.norm(n)
+        n = n / norm if norm > 0 else n
+        self._prims.append((PRIM_TRIANGLE, v0, e1.astype(np.float32),
+                            e2.astype(np.float32), np.float32(0.0),
+                            n.astype(np.float32), int(mat)))
+
+    def add_mesh(self, vertices, faces, mat: int):
+        """Expand an indexed triangle mesh into triangle rows."""
+        vertices = np.asarray(vertices, np.float32)
+        faces = np.asarray(faces, np.int64)
+        for f in faces:
+            self.add_triangle(vertices[f[0]], vertices[f[1]],
+                              vertices[f[2]], mat)
+
+    def build(self, device="cpu") -> Scene:
+        if not self._prims:
+            raise ValueError("empty scene")
+        ptype = np.array([p[0] for p in self._prims], np.int32)
+        v0 = np.stack([p[1] for p in self._prims])
+        e1 = np.stack([p[2] for p in self._prims])
+        e2 = np.stack([p[3] for p in self._prims])
+        radius = np.array([p[4] for p in self._prims], np.float32)
+        tri_n = np.stack([p[5] for p in self._prims])
+        pmat = np.array([p[6] for p in self._prims], np.int32)
+
+        is_sphere = (ptype == PRIM_SPHERE)[:, None]
+        r_abs = np.abs(radius)[:, None]
+        sph_min, sph_max = v0 - r_abs, v0 + r_abs
+        tri_min = np.minimum(v0, np.minimum(v0 + e1, v0 + e2))
+        tri_max = np.maximum(v0, np.maximum(v0 + e1, v0 + e2))
+        box_min = np.where(is_sphere, sph_min, tri_min).astype(np.float32)
+        box_max = np.where(is_sphere, sph_max, tri_max).astype(np.float32)
+
+        world_min = box_min.min(axis=0)
+        world_max = box_max.max(axis=0)
+
+        if not self._mats:
+            raise ValueError("scene has no materials")
+        mtype = np.array([m[0] for m in self._mats], np.int32)
+        light_idx = np.nonzero(mtype[pmat] == MAT_EMISSIVE)[0].astype(
+            np.int32)
+        fields = dict(
+            prim_type=ptype, v0=v0, e1=e1, e2=e2, radius=radius,
+            tri_normal=tri_n, prim_mat=pmat, box_min=box_min,
+            box_max=box_max, mat_type=mtype,
+            albedo=np.stack([m[1] for m in self._mats]),
+            fuzz=np.array([m[2] for m in self._mats], np.float32),
+            ir=np.array([m[3] for m in self._mats], np.float32),
+            emit=np.stack([m[4] for m in self._mats]),
+            tex_id=np.array([m[5] for m in self._mats], np.int32),
+            world_min=world_min, world_max=world_max, light_idx=light_idx,
+            textures=np.zeros((0, 1, 1, 3), np.float32))
+        return scene_from_numpy(fields, device)
