@@ -1,8 +1,10 @@
-"""CLI: render a scene to PNG on the GPU.
+"""CLI: render a scene or a preset to PNG on the GPU.
 
 Usage:
     python -m pathtracer_tpu_torch --scene bunny --width 640 --height 360 \\
         --spp 8 --max-depth 4 --ray-chunk 57600 -o out.png
+    python -m pathtracer_tpu_torch --preset cornell-full --accel pallas \\
+        --ray-chunk 65536 -o out/cornell.png
 
 The render runs on ``cuda``; ``--device cpu`` runs the plain PyTorch
 twins instead (for tests, at small sizes).
@@ -14,44 +16,88 @@ import os
 import sys
 import time
 
+SCENES = ["test", "triangle", "random", "cornell", "bunny", "combined"]
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtracer_tpu_torch",
-        description="PyTorch/CUDA port of the path tracer (bunny slice)")
-    p.add_argument("--scene", default="bunny", choices=["bunny", "test"])
+        description="PyTorch/CUDA port of the path tracer")
+    p.add_argument("--scene", default="bunny", choices=SCENES)
+    p.add_argument("--preset", default=None,
+                   help="named configuration (cornell-direct / "
+                        "cornell-full / bunny / combined-1080p); overrides "
+                        "scene, size, spp and depth")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="resolution and spp factor applied to --preset")
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=360)
     p.add_argument("--spp", type=int, default=8)
     p.add_argument("--max-depth", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--ray-chunk", type=int, default=57600)
-    p.add_argument("--accel", default="auto", choices=["auto", "cluster"])
+    p.add_argument("--ray-chunk", type=int, default=None,
+                   help="rays per wavefront chunk (default 57600; with "
+                        "--preset, the preset's)")
+    p.add_argument("--accel", default=None,
+                   choices=["auto", "cluster", "tensor", "pallas", "brute"],
+                   help="closest-hit route (default auto: tensor below "
+                        "1,024 prims, cluster above; with --preset, "
+                        "overrides the preset's)")
+    p.add_argument("--nee", action="store_true",
+                   help="next-event estimation at diffuse bounces (scenes "
+                        "with emissive lights)")
+    p.add_argument("--no-sky", action="store_true",
+                   help="black background (emissive-lit scenes)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu runs the plain twins (tests only)")
     p.add_argument("-o", "--output", default="debug.png")
     return p
 
 
+def scene_and_config(args, device):
+    """(scene, camera, RenderConfig) from the parsed arguments."""
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.presets import get_preset
+    from pathtracer_tpu_torch.scene.worlds import get_world
+
+    if args.preset:
+        scene, cam, cfg = get_preset(args.preset, device=device)
+        if args.scale != 1.0:
+            s = args.scale
+            cfg = cfg.replace(width=max(8, int(cfg.width * s)),
+                              height=max(8, int(cfg.height * s)),
+                              spp=max(1, int(cfg.spp * s)))
+        cfg = cfg.replace(seed=args.seed)
+        if args.accel:
+            cfg = cfg.replace(accel=args.accel)
+        if args.ray_chunk:
+            cfg = cfg.replace(ray_chunk=args.ray_chunk)
+        return scene, cam, cfg
+    scene, cam = get_world(args.scene, device=device)
+    # the Cornell box is lit by its area light alone
+    cornell = args.scene == "cornell"
+    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       max_depth=args.max_depth, accel=args.accel or "auto",
+                       seed=args.seed, ray_chunk=args.ray_chunk or 57600,
+                       sky=not (args.no_sky or cornell),
+                       nee=args.nee or cornell, scene=args.scene)
+    return scene, cam, cfg
+
+
 def render_cli(args):
     """Build the scene and config, render, return (image (H,W,3) CPU
-    tensor, seconds, cfg, stats). Shared by the CLI and chip_smoke.py."""
+    tensor, seconds, cfg, (closest-hit queries, shadow queries, march pair
+    tests)). Shared by the CLI and chip_smoke.py."""
     import torch
 
-    from pathtracer_tpu_torch.config import RenderConfig
     from pathtracer_tpu_torch.render.renderer import make_renderer
-    from pathtracer_tpu_torch.scene.worlds import get_world
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; the CLI renders on the GPU")
     device = torch.device(args.device)
-    scene, cam = get_world(args.scene, device=device)
-    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       max_depth=args.max_depth, accel=args.accel,
-                       seed=args.seed, ray_chunk=args.ray_chunk,
-                       scene=args.scene)
+    scene, cam, cfg = scene_and_config(args, device)
     render = make_renderer(cfg, device, with_stats=True)
-    render.tables(scene)            # cluster build is set-up, not render
+    render.prepare(scene)           # table build is set-up, not render
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     start = time.perf_counter()
@@ -64,12 +110,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from pathtracer_tpu_torch.io.png import write_png
 
-    img, seconds, cfg, (n_queries, n_pairs) = render_cli(args)
+    try:
+        img, seconds, cfg, (n_queries, n_shadow, _) = render_cli(args)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     nominal = cfg.num_pixels * cfg.spp * cfg.max_depth
     print(f"Rendered {cfg.scene}: {cfg.width}x{cfg.height}, {cfg.spp} spp, "
-          f"depth {cfg.max_depth} on {args.device} in {seconds:.6g} s "
-          f"({nominal / seconds / 1e6:.3f} Mrays/s nominal, "
-          f"{n_queries / seconds / 1e6:.3f} executed)")
+          f"depth {cfg.max_depth}, accel {cfg.accel}"
+          f"{', nee' if cfg.nee else ''} on {args.device} in {seconds:.6g} s"
+          f" ({nominal / seconds / 1e6:.3f} Mrays/s nominal, "
+          f"{n_queries / seconds / 1e6:.3f} executed, {n_shadow:.0f} shadow "
+          f"rays)")
     out_dir = os.path.dirname(args.output)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)

@@ -10,7 +10,7 @@ from __future__ import annotations
 from pathtracer_tpu_torch.scene.scene import Scene, scene_from_numpy
 
 
-def scene_from_jax_arrays(fields: dict, device="cpu") -> Scene:
+def scene_from_jax_arrays(fields: dict, device="cuda") -> Scene:
     """Port Scene from a dict of numpy arrays keyed by Scene field name."""
     missing = set(Scene._fields) - set(fields)
     if missing:

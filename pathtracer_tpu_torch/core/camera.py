@@ -32,7 +32,7 @@ class Camera(NamedTuple):
 
 def make_camera(look_from, look_at, vfov_deg, aspect_ratio, aperture=0.0,
                 focus_dist=1.0, time0=0.0, time1=0.0,
-                device="cpu") -> Camera:
+                device="cuda") -> Camera:
     """Build the camera basis and viewport on ``device``."""
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -46,6 +46,12 @@ def normalize(a):
     return a / length(a, keepdim=True)
 
 
+def safe_normalize(a, eps: float = 1e-20):
+    """v / sqrt(max(|v|^2, eps)): finite for v == 0."""
+    return a / torch.sqrt(torch.clamp(length_squared(a, keepdim=True),
+                                      min=eps))
+
+
 def safe_sqrt(x):
     """sqrt(x) where x > 0, else 0."""
     pos = x > 0.0

@@ -25,19 +25,19 @@
 // Tensor cores (wgmma), TMA copies of the column blocks and a persistent
 // grid are left to later work.
 //
-// Arithmetic: every pair scalar is summed left to right over the 12
-// features and the library is built with --fmad=false, so products and sums
-// round exactly like the separate PyTorch ops of the plain twin
-// (`march_reference` in ops/cluster_sweep.py); divisions and square roots
-// are IEEE (no fast math).
+// Arithmetic: the pair scalars and the sphere / triangle epilogue come from
+// sweep_common.cuh, so they round exactly like the separate PyTorch ops of
+// the plain twin (`march_reference` in ops/cluster_sweep.py).
 
 #include <cuda_runtime.h>
 
+#include "sweep_common.cuh"
+
 namespace {
 
-constexpr float kBig = 3.0e38f;
-constexpr int kFeat = 12;
-constexpr int kOuts = 4;
+using pt_sweep::kBig;
+using pt_sweep::kFeat;
+using pt_sweep::kOuts;
 
 // Max over the block of `v`; every thread gets the result. `red` holds one
 // float per warp.
@@ -104,34 +104,15 @@ __global__ void __launch_bounds__(1024) cluster_march_kernel(
       float S[kOuts];
 #pragma unroll
       for (int o = 0; o < kOuts; ++o) {
-        const float* col = s_cols + o * K + k;  // feature f at f * kOuts * K
-        float s = p[0] * col[0];
-#pragma unroll
-        for (int f = 1; f < kFeat; ++f) s = s + p[f] * col[f * kOuts * K];
-        S[o] = s;
+        // feature f of output o at s_cols[f * kOuts * K + o * K + k]
+        S[o] = pt_sweep::pair_scalar(p, s_cols + o * K + k, kOuts * K);
       }
       const bool sph = (ct == 1) || (ct == 0 && s_sph[k] != 0);
       float t;
-      bool hit;
-      if (sph) {
-        const float B = S[0], C0 = S[1];
-        const float disc = B * B - ai * C0;
-        const float sqrt_d = disc > 0.0f ? sqrtf(disc) : 0.0f;
-        const float root0 = (-B - sqrt_d) * inv_a;
-        const float root1 = (-B + sqrt_d) * inv_a;
-        const bool ok0 = !((root0 < t_min) || (t_max < root0));
-        const bool ok1 = !((root1 < t_min) || (t_max < root1));
-        t = ok0 ? root0 : root1;
-        hit = (disc >= 0.0f) && (ok0 || ok1);
-      } else {
-        const float det = S[0];
-        const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-        t = S[1] * inv_det;
-        const float b1 = S[2] * inv_det;
-        const float b2 = S[3] * inv_det;
-        hit = !((det == 0.0f) || (b1 <= 0.0f) || (b2 <= 0.0f) ||
-                (b1 + b2 >= 1.0f) || (t <= t_min) || (t >= t_max));
-      }
+      const bool hit =
+          sph ? pt_sweep::sphere_hit(S[0], S[1], ai, inv_a, t_min, t_max, &t)
+              : pt_sweep::triangle_hit(S[0], S[1], S[2], S[3], t_min, t_max,
+                                       &t);
       if (hit && t < t_acc) {
         t_acc = t;
         b_acc = c * K + k;

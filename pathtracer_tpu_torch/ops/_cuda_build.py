@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled with nvcc
 into its own shared library under ``pathtracer_tpu_torch/_build/`` at first
-use, then loaded with ctypes. The library name carries a hash of the source
-and the flags, so an edited source rebuilds and a built one is reused.
-Nothing here runs at import time: the CPU-only test environment has no
-nvcc.
+use, then loaded with ctypes. The library name carries a hash of the source,
+of every shared ``csrc/*.cuh`` header and of the flags, so an edited source
+or header rebuilds and a built one is reused. :func:`build_all` compiles
+several sources at once, one nvcc process each. Nothing here runs at import
+time: the CPU-only test environment has no nvcc.
 """
 from __future__ import annotations
 
@@ -44,29 +45,61 @@ def nvcc_path() -> str:
     return path
 
 
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` at its current source,
+    headers and flags lives (built or not)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build_all(names) -> dict:
+    """Compile each ``csrc/<name>.cu`` that has no up-to-date library, all
+    nvcc processes at once; returns {name: library path}. Raises if any
+    build fails, after every process has ended."""
+    paths = {name: library_path(name) for name in names}
+    todo = [n for n in names if not os.path.exists(paths[n])]
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    jobs = []
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            src = os.path.join(CSRC, name + ".cu")
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, tmp, proc))
+        failed = []
+        for name, tmp, proc in jobs:
+            BUILD_LOGS[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n"
+                              f"{BUILD_LOGS[name]}")
+            else:
+                os.replace(tmp, paths[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     returns the library path."""
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        BUILD_LOGS[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{BUILD_LOGS[name]}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -76,3 +109,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(build(name))
         _LIBS[name] = lib
     return lib
+
+
+def check_arg(x, name: str, dtype, shape, device) -> None:
+    """Raise unless tensor ``x`` has ``dtype``, ``shape``, is contiguous and
+    lies on ``device``: what a kernel wrapper checks before it passes a
+    pointer."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")

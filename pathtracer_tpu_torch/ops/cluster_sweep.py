@@ -6,7 +6,8 @@ Per query:
 1. cull: slab-test every ray against the regular cluster AABBs, giving
    conservative entry distances (C_reg, R);
 2. bin: one sort groups rays by (nearest, last) touched cluster; dead and
-   untouched lanes sort last;
+   untouched lanes sort last (skipped by the shadow query, whose rays
+   already come in the order of the hits they start from);
 3. order: each chunk of ``ray_tile`` rays gets its clusters in ascending
    chunk-entry order, plus a +BIG sentinel slot; each lane gets a stop gate
    (its farthest touched entry, nudged up);
@@ -31,6 +32,7 @@ import ctypes
 
 import torch
 
+from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
 from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops import _cuda_build
 from pathtracer_tpu_torch.ops.clusters import K_RES, ClusterTables
@@ -122,16 +124,6 @@ def march_reference(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
     return t_acc.reshape(-1), b_acc.reshape(-1), slots
 
 
-def _check(x, name, dtype, shape):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
                 K, t_min, t_max, ray_tile):
     global MARCH_LAUNCHES
@@ -150,9 +142,7 @@ def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
             ("is_sphere", is_sphere, torch.int32, (C_tot, K)),
             ("valid_row", valid_row, torch.int32, (C_tot, K)),
             ("ctype", ctype, torch.int32, (C_tot,))):
-        _check(x, name, dtype, shape)
-        if x.device != phi.device:
-            raise ValueError(f"{name} is on {x.device}, phi on {phi.device}")
+        _cuda_build.check_arg(x, name, dtype, shape, phi.device)
     lib = _cuda_build.load("cluster_march")
     fn = lib.cluster_march_launch
     fn.restype = ctypes.c_int
@@ -191,8 +181,9 @@ def march(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
 
 
 def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
-                 active=None, extras=None, t_max=None):
-    """Steps 1-3 of the query (cull, bin, order) and the residual sweep.
+                 active=None, extras=None, t_max=None, sort_rays=True):
+    """Steps 1-3 of the query (cull, bin, order) and the residual sweep;
+    ``sort_rays`` False keeps the caller's lane order (no binning sort).
 
     Returns a dict with the sorted rays (``o``, ``d``, ``active``,
     ``active0`` in caller order, ``rid`` the caller position of each
@@ -221,19 +212,24 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
     t_min = float(t_min)
 
     entry = _cull_T(o, d, active, ct.cmin, ct.cmax, t_min)   # (C_reg, R)
-    # two-level bin key (nearest touched cluster, last touched cluster);
-    # untouched and dead lanes sort strictly last
-    touched = entry < BIG * 0.5
-    kmin = torch.argmin(entry, dim=0)
-    any_t = torch.any(touched, dim=0)
-    klast = C_reg - 1 - torch.argmax(touched.flip(0).to(torch.uint8), dim=0)
-    key = torch.where(any_t, kmin * (C_reg + 1) + klast, C_reg * (C_reg + 2))
-    order = torch.sort(key, stable=True).indices
-    o, d, active = o[order], d[order], active[order]
+    if sort_rays:
+        # two-level bin key (nearest touched cluster, last touched
+        # cluster); untouched and dead lanes sort strictly last
+        touched = entry < BIG * 0.5
+        kmin = torch.argmin(entry, dim=0)
+        any_t = torch.any(touched, dim=0)
+        klast = C_reg - 1 - torch.argmax(touched.flip(0).to(torch.uint8),
+                                         dim=0)
+        key = torch.where(any_t, kmin * (C_reg + 1) + klast,
+                          C_reg * (C_reg + 2))
+        order = torch.sort(key, stable=True).indices
+        o, d, active = o[order], d[order], active[order]
+        entry = entry[:, order]
+        if keep_sorted:
+            extras = tuple(e[order] for e in extras)
+    else:
+        order = torch.arange(r_pad, device=dev)
     rid = order
-    entry = entry[:, order]
-    if keep_sorted:
-        extras = tuple(e[order] for e in extras)
 
     d_eff = torch.where(active[:, None], d, 0.0)
     phi = ray_features(o, d_eff)
@@ -285,7 +281,7 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
 
 def cluster_march(ct: ClusterTables, o, d, t_min,
                   ray_tile: int = DEF_RAY_TILE, active=None, extras=None,
-                  t_max: float = None):
+                  t_max: float = None, sort_rays: bool = True):
     """Single-pass culled closest-hit: (prim_idx, t, valid), each (R,).
 
     Indices address ``ct.scene`` (the reordered scene). ``active`` ((R,)
@@ -295,9 +291,10 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
     returns ``(idx, t, valid, o_s, d_s, active_s, extras_s, pair_tests)``,
     with ``pair_tests`` the executed (ray, prim-slot) tests. ``t_max``:
     hits at or beyond it are rejected and clusters entered beyond it are
-    not marched."""
+    not marched. ``sort_rays`` False skips the binning sort (same result,
+    less locality)."""
     q = march_inputs(ct, o, d, t_min, ray_tile=ray_tile, active=active,
-                     extras=extras, t_max=t_max)
+                     extras=extras, t_max=t_max, sort_rays=sort_rays)
     t_best, best, slots = march(*q["args"])
     pair_tests = float(slots.sum().item()) * ct.K * ray_tile
 
@@ -314,9 +311,10 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
         return (idx, t_best, found, q["o"], q["d"], q["active"], q["extras"],
                 pair_tests)
 
-    rid = q["rid"]
-    t_best = torch.empty_like(t_best).index_put_((rid,), t_best)
-    best = torch.empty_like(best).index_put_((rid,), best)
+    if sort_rays:
+        rid = q["rid"]
+        t_best = torch.empty_like(t_best).index_put_((rid,), t_best)
+        best = torch.empty_like(best).index_put_((rid,), best)
     r = q["r"]
     t_best = t_best[:r]
     best = best[:r]
@@ -328,7 +326,8 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float):
     """Closest-hit factory over prebuilt cluster tables. ``closest(o, d)``
     returns (idx, t, valid) in caller order; ``closest.query_sorted(o, d,
     active, extras)`` is the sorted-wavefront protocol (see
-    :func:`cluster_march`). Indices refer to ``ct.scene``."""
+    :func:`cluster_march`); ``closest.query_shadow(o, d, active)`` is the
+    NEE occlusion query. Indices refer to ``ct.scene``."""
     def closest(o, d):
         return cluster_march(ct, o, d, float(t_min))
 
@@ -336,7 +335,16 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float):
         return cluster_march(ct, o, d, float(t_min), active=active,
                              extras=extras)
 
+    def query_shadow(o, d, active=None):
+        # the segment runs to the light point at t == 1: t_max = 1 rejects
+        # geometry beyond the light and stops the march there. Its origin
+        # is already offset off the surface (render/lights), so t_min is
+        # the near-zero K_SHADOW_T_MIN, not the bounce t_min
+        return cluster_march(ct, o, d, K_SHADOW_T_MIN, active=active,
+                             t_max=1.0, sort_rays=False)
+
     closest.handles_dead = True
     closest.query_sorted = query_sorted
+    closest.query_shadow = query_shadow
     closest.ray_tile = DEF_RAY_TILE
     return closest

@@ -9,8 +9,13 @@ against four precomputed 12-wide columns per primitive, followed by an
 elementwise epilogue that reproduces the reference's accept/reject rules.
 The port contracts in plain float32: each pair scalar is the left-to-right
 sum of the twelve products (:func:`contract`), the same order the CUDA
-march kernel uses, so kernel and plain twin round alike. The reference's
+kernels use, so a kernel and its plain twin round alike. The reference's
 bf16 split precision modes are TPU workarounds and are not ported.
+
+:func:`tensor_closest` is the dense ``accel="tensor"`` route, which the
+reference leaves to XLA: per primitive tile one float32 matrix product
+(``torch.matmul``, TF32 off), the epilogue and a strict-``<`` merge. It
+runs no kernel of this package.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from pathtracer_tpu_torch.core import vec
+from pathtracer_tpu_torch.ops import intersect
 from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE, Scene
 
 FEAT = 12   # phi dimension
@@ -148,3 +154,44 @@ def _epilogue(B, C0, P2, P3, a2, is_sphere, valid_row, t_min, t_max):
     t_sph_eff = torch.where(hit_sph & valid_row, t_sph, BIG)
     t_tri_eff = torch.where(hit_tri & valid_row, t_tri, BIG)
     return torch.where(is_sphere, t_sph_eff, t_tri_eff)
+
+
+def merge_tile(t_eff, base: int, t_best, best):
+    """Merge one tile's effective t (R, tile) into the running (t_best,
+    best): the tile's first minimum replaces the running best only where
+    strictly smaller, so the lowest index wins ties across tiles too."""
+    j = torch.argmin(t_eff, dim=1)
+    t_tile = torch.gather(t_eff, 1, j[:, None])[:, 0]
+    better = t_tile < t_best
+    return (torch.where(better, t_tile, t_best),
+            torch.where(better, base + j.to(best.dtype), best))
+
+
+def tensor_closest(tables: SweepTables, o, d, t_min, t_max):
+    """Dense closest hit through float32 matrix products: (prim_idx (R,)
+    int64, t (R,), valid (R,) bool); ties go to the lowest index."""
+    phi = ray_features(o, d)
+    a2 = vec.dot(d, d)[:, None]
+    tile = tables.tile
+    t_best = torch.full((o.shape[0],), intersect.BIG_T, dtype=torch.float32,
+                        device=o.device)
+    best = torch.full((o.shape[0],), -1, dtype=torch.int64, device=o.device)
+    for i in range(tables.cols.shape[0]):
+        S = torch.matmul(phi, tables.cols[i])
+        t_eff = _epilogue(S[:, 0:tile], S[:, tile:2 * tile],
+                          S[:, 2 * tile:3 * tile], S[:, 3 * tile:4 * tile],
+                          a2, tables.is_sphere[i], tables.valid_row[i],
+                          t_min, t_max)
+        t_best, best = merge_tile(t_eff, i * tile, t_best, best)
+    valid = best >= 0
+    return torch.where(valid, best, 0), t_best, valid
+
+
+def make_tensor_closest_hit(scene: Scene, t_min: float, tile: int = 2048):
+    """Closest-hit function ``closest(o, d) -> (idx, t, valid)`` over
+    ``scene`` through :func:`tensor_closest`, hits in (t_min, BIG_T)."""
+    tables = pack_sweep_tables(scene, tile=tile)
+
+    def closest(o, d):
+        return tensor_closest(tables, o, d, float(t_min), intersect.BIG_T)
+    return closest

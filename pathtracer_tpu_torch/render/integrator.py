@@ -8,11 +8,19 @@ once no lane is alive. Exit semantics follow the reference:
 - depth out    -> sky(last direction) * attenuation (the reference quirk;
                   ``terminate_black`` flips it to black)
 
+- emissive hit -> accumulated emitted * attenuation (no sky term)
+
 Sorted-wavefront mode (the cluster march's ``query_sorted``, R a multiple
 of the chunk): the march's binning sort carries the per-ray state and the
 wavefront stays in march order between bounces; one final unsort by ray id
 restores pixel order. Otherwise each bounce queries in caller order.
 Random draws are keyed by ray id, so they do not depend on lane order.
+
+With ``nee`` (scenes with emissive prims) every diffuse or fuzzy-metal hit
+also samples one light point and casts a shadow ray (``render/lights``);
+light samples and BSDF-sampled emissive hits are weighted by the one-sample
+balance heuristic, while camera rays and paths after a delta lobe keep the
+full emissive weight.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops import intersect
+from pathtracer_tpu_torch.render import lights
 from pathtracer_tpu_torch.scene import materials
 from pathtracer_tpu_torch.scene.scene import Scene
 
@@ -39,18 +48,30 @@ def sky_color(direction):
     return (1.0 - t)[..., None] * white + t[..., None] * blue
 
 
+def make_brute_closest_hit(scene: Scene, t_min: float):
+    """Closest hit by a dense scan over every primitive
+    (``intersect.brute_force_closest``), hits in (t_min, BIG_T)."""
+    def closest(o, d):
+        return intersect.brute_force_closest(scene, o, d, t_min,
+                                             intersect.BIG_T)
+    return closest
+
+
 def trace(scene: Scene, origin, direction, key, max_depth: int,
           closest_hit_fn, t_min: float = 1e-3, sky: bool = True,
-          terminate_black: bool = False):
+          terminate_black: bool = False, nee: bool = False):
     """Trace a wavefront of rays; returns (radiance (N, 3), (closest-hit
-    queries executed, march pair tests)).
+    queries, shadow queries, march pair tests)) executed.
 
     ``key`` is a threefry key (``core/random``); ``closest_hit_fn(o, d) ->
     (prim_idx, t, valid)`` over ``scene``'s rows, optionally with
-    ``query_sorted`` and ``ray_tile`` (the cluster march). NEE and Russian
-    roulette are not ported (the renderer rejects them)."""
+    ``query_sorted`` and ``ray_tile`` (the cluster march) and
+    ``handles_dead``; with ``nee`` it needs ``query_shadow`` (the shadow
+    query, as every route of ``render/renderer`` has). Russian roulette is not
+    ported (the renderer rejects it)."""
     n_rays = origin.shape[0]
     dev = origin.device
+    use_nee = nee and scene.num_lights > 0
     handles_dead = getattr(closest_hit_fn, "handles_dead", False)
     query_sorted = getattr(closest_hit_fn, "query_sorted", None)
     tile = getattr(closest_hit_fn, "ray_tile", 1)
@@ -65,9 +86,10 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     absorbed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
     emitted_acc = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     spec_prev = torch.ones(n_rays, dtype=torch.bool, device=dev)
+    # solid-angle pdf of the bounce that chose the current direction
+    prev_pdf = torch.zeros(n_rays, dtype=torch.float32, device=dev)
     rid = torch.arange(n_rays, dtype=torch.int32, device=dev)
-    n_queries = 0.0
-    n_pairs = 0.0
+    n_queries = n_shadow = n_pairs = 0.0
 
     depth = 0
     while depth < max_depth and bool(alive.any()):
@@ -81,6 +103,8 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
             extras = (atten[:, 0], atten[:, 1], atten[:, 2], flags)
             if carry_emit:
                 extras += tuple(emitted_acc.unbind(1))
+            if use_nee:
+                extras += (prev_pdf,)
             idx, _, hit_valid, o, d, alive, ex, pairs = query_sorted(
                 o, d, alive, extras)
             n_pairs += pairs
@@ -91,6 +115,8 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
             spec_prev = ((flags >> (_RID_BITS + 1)) & 1) != 0
             if carry_emit:
                 emitted_acc = torch.stack(ex[4:7], dim=1)
+            if use_nee:
+                prev_pdf = ex[-1]
         else:
             d_query = torch.where(alive[:, None], d, 0.0) if handles_dead \
                 else d
@@ -103,11 +129,44 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
 
         active = alive & hit_valid
         hit_emitter = active & sc.is_emissive
-        emitted_acc = emitted_acc + torch.where(
-            hit_emitter[:, None], atten * sc.emitted, 0.0)
+        if use_nee:
+            w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d, prev_pdf)
+            emit_w = torch.where(spec_prev, 1.0, w_bsdf)
+            emitted = atten * sc.emitted * emit_w[:, None]
+        else:
+            emitted = atten * sc.emitted
+        emitted_acc = emitted_acc + torch.where(hit_emitter[:, None],
+                                                emitted, 0.0)
         newly_absorbed = active & ~sc.is_emissive & ~sc.ok
         absorbed = absorbed | newly_absorbed | hit_emitter
         step = active & sc.ok & ~sc.is_emissive
+
+        if use_nee:
+            u_nee = prng.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
+            # every diffuse or glossy hit takes a light sample, whether or
+            # not its own BSDF sample survives (sc.ok)
+            take_direct = (active & ~sc.is_emissive
+                           & (sc.is_diffuse | sc.is_glossy))
+            n_shadow += (float(take_direct.sum()) if handles_dead
+                         else float(n_rays))
+            direct, _ = lights.direct_lighting(
+                scene, rec.p, rec.normal, sc.attenuation, closest_hit_fn,
+                u_nee, (sc.is_glossy, sc.glossy_r, sc.fuzz), eps=t_min,
+                active=take_direct if handles_dead else None)
+            emitted_acc = emitted_acc + torch.where(
+                take_direct[:, None], atten * direct, 0.0)
+            # fuzzy metal has a finite lobe and weighs emissive hits like
+            # diffuse; only delta lobes keep the full emissive weight
+            spec_prev = torch.where(step, sc.is_specular & ~sc.is_glossy,
+                                    spec_prev)
+            w_new = vec.safe_normalize(sc.direction)
+            new_cos = torch.clamp(vec.dot(rec.normal, w_new), min=0.0)
+            p_new = torch.where(sc.is_glossy,
+                                lights.metal_lobe_pdf(w_new, sc.glossy_r,
+                                                      sc.fuzz),
+                                new_cos * vec.PI_INV)
+            prev_pdf = torch.where(step & take_direct, p_new, prev_pdf)
+
         o = torch.where(step[:, None], rec.p, o)
         d = torch.where(step[:, None], sc.direction, d)
         atten = torch.where(step[:, None], atten * sc.attenuation, atten)
@@ -129,4 +188,4 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
         # back to pixel order by ray id
         radiance = torch.empty_like(radiance).index_put_((rid.long(),),
                                                          radiance)
-    return radiance, (n_queries, n_pairs)
+    return radiance, (n_queries, n_shadow, n_pairs)

@@ -11,14 +11,18 @@ sample)``, ``fold_in(·, first pixel of the chunk)``, ``split(·, 4)`` into
 (pixel jitter, trace, lens, time) keys, and per bounce ``fold_in(trace key,
 depth)`` keyed again by ray id (``core/random``).
 
-Only the slice's path is ported: the cluster march (``accel`` "cluster",
-or "auto" on scenes of K_AUTO_ACCEL_PRIMS prims or more), uniform pixel
-jitter, no NEE or Russian roulette, no textures, forward only. Everything
-else raises ``NotImplementedError`` naming its ROADMAP item.
+Closest-hit routes (``cfg.accel``, "auto" by scene size): "cluster" (the
+march kernel), "pallas" (the dense sweep kernel), "tensor" (dense float32
+matrix products, the "auto" choice below K_AUTO_ACCEL_PRIMS prims) and
+"brute". Every route carries a shadow query for NEE. ``stratify`` jitters
+sample s inside stratum (s mod m^2) of an m x m sub-pixel grid, m the
+largest integer with m^2 dividing ``cfg.spp``. Russian roulette, the Sobol
+sampler, the BVH route and the differentiable render raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -27,8 +31,9 @@ from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.core import camera as camera_mod
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.ops.cluster_sweep import make_cluster_closest_hit
-from pathtracer_tpu_torch.ops.clusters import ClusterTables, \
-    build_cluster_tables
+from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+from pathtracer_tpu_torch.ops.pallas_sweep import make_pallas_closest_hit
+from pathtracer_tpu_torch.ops.tensor_sweep import make_tensor_closest_hit
 from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.scene.scene import Scene
 
@@ -38,21 +43,55 @@ from pathtracer_tpu_torch.scene.scene import Scene
 CLUSTER_K = 64
 
 
-def check_supported(cfg: RenderConfig, scene: Scene) -> None:
-    """Raise NotImplementedError for anything off the ported slice."""
+class Query(NamedTuple):
+    """A scene prepared for one closest-hit route."""
+    closest: Callable   # closest(o, d) -> (idx, t, valid), + query_shadow
+    scene: Scene        # the scene its indices address (shade with it)
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for what is not ported yet."""
+    if cfg.accel == "bvh":
+        raise NotImplementedError(
+            "accel 'bvh' is not ported yet (ROADMAP Queue 1, item 12)")
+    if cfg.rr or cfg.sampler != "random":
+        raise NotImplementedError(
+            "Russian roulette and the Sobol sampler are not ported yet "
+            "(ROADMAP Queue 1, item 8)")
+
+
+def _with_shadow(factory, scene: Scene, t_min: float):
+    """``factory(scene, t_min)`` with a ``query_shadow`` built by the same
+    factory at the near-zero K_SHADOW_T_MIN: the shadow segment's origin is
+    already offset off the surface (render/lights), and the segment is
+    unnormalized, so a bounce t_min would be a window proportional to the
+    light's distance."""
+    closest = factory(scene, t_min)
+    shadow = factory(scene, config_mod.K_SHADOW_T_MIN)
+    closest.query_shadow = lambda o, d, active=None: shadow(o, d)
+    return closest
+
+
+def make_query(scene: Scene, cfg: RenderConfig) -> Query:
+    """The closest-hit route ``cfg.accel`` selects for ``scene``, built on
+    the scene's device."""
+    check_supported(cfg)
     accel = config_mod.resolve_accel(cfg.accel, scene.num_prims)
-    if accel != "cluster":
-        item = {"tensor": 7, "pallas": 7, "brute": 7, "bvh": 12}[accel]
-        raise NotImplementedError(
-            f"accel {accel!r} is not ported yet (ROADMAP Queue 1, item "
-            f"{item}); use accel='cluster'")
-    if cfg.nee or cfg.rr or cfg.stratify or cfg.sampler != "random":
-        raise NotImplementedError(
-            "NEE, Russian roulette, stratified and Sobol sampling are not "
-            "ported yet (ROADMAP Queue 1, item 8)")
-    if scene.textures.shape[0] > 0:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP Queue 1, item 8)")
+    if accel == "cluster":
+        ct = build_cluster_tables(scene, K=CLUSTER_K)
+        return Query(make_cluster_closest_hit(ct, cfg.t_min), ct.scene)
+    factory = {"tensor": make_tensor_closest_hit,
+               "pallas": make_pallas_closest_hit,
+               "brute": integrator.make_brute_closest_hit}[accel]
+    return Query(_with_shadow(factory, scene, cfg.t_min), scene)
+
+
+def _stratum_grid(spp: int) -> int:
+    """Largest m with m^2 dividing spp."""
+    m = max(1, int(spp ** 0.5))
+    while m > 1 and spp % (m * m) != 0:
+        m -= 1
+    return m
 
 
 def _pixel_grid(width: int, height: int, n_padded: int, device):
@@ -68,20 +107,22 @@ def _pixel_grid(width: int, height: int, n_padded: int, device):
 
 
 def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
-               cfg: RenderConfig, spp: int, ct: ClusterTables,
+               cfg: RenderConfig, spp: int, query: Optional[Query] = None,
                differentiable: bool = False):
     """Radiance SUM (P, 3) over ``spp`` samples for a flat pixel wavefront
     (P a multiple of the chunk), not averaged or gamma'd, and the executed
-    (closest-hit queries, march pair tests).
+    (closest-hit queries, shadow queries, march pair tests).
 
-    ``ct`` holds the cluster tables of ``scene``; shading uses its
-    reordered scene. Chunk keys derive from the first pixel's global index,
-    so a pixel's samples do not depend on the chunking."""
+    ``query`` is :func:`make_query` of ``scene`` (built here when None);
+    shading uses its scene. Chunk keys derive from the first pixel's global
+    index, so a pixel's samples do not depend on the chunking."""
     if differentiable:
         raise NotImplementedError(
             "the differentiable render is not ported yet (ROADMAP Queue 1, "
             "item 10)")
-    check_supported(cfg, scene)
+    if query is None:
+        query = make_query(scene, cfg)
+    check_supported(cfg)
     n_padded = rows.shape[0]
     chunk = min(cfg.ray_chunk, n_padded)
     n_chunks = n_padded // chunk
@@ -90,19 +131,24 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
     w_inv = 1.0 / cfg.width
     h_inv = 1.0 / cfg.height
     dev = rows.device
-    closest = make_cluster_closest_hit(ct, cfg.t_min)
-    shade_scene = ct.scene
+    m_strat = _stratum_grid(cfg.spp) if cfg.stratify else 1
+    inv_m = 1.0 / m_strat
 
     acc = torch.zeros((n_padded, 3), dtype=torch.float32, device=dev)
-    n_queries = n_pairs = 0.0
+    n_queries = n_shadow = n_pairs = 0.0
     for s in range(spp):
         skey = prng.fold_in(base_key, s)
+        stratum = s % (m_strat * m_strat)
+        sx, sy = float(stratum % m_strat), float(stratum // m_strat)
         for c in range(n_chunks):
             sl = slice(c * chunk, (c + 1) * chunk)
             row, col = rows[sl], cols[sl]
             ckey = prng.fold_in(skey, c * chunk)
             pkey, tkey, lkey1, lkey2 = prng.split(ckey, 4)
             xi = prng.uniform(pkey, (2, chunk), dev)
+            if m_strat > 1:
+                xi = torch.stack([(sx + xi[0]) * inv_m,
+                                  (sy + xi[1]) * inv_m])
             u = (col + xi[0]) * w_inv
             v = (row + xi[1]) * h_inv
             u_disk = prng.uniform(lkey1, (2, chunk), dev)
@@ -110,41 +156,45 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
             # shutter time is unused: no ported scene moves
             o, d, _ = camera_mod.get_rays(cam, u, v, u_disk[0], u_disk[1],
                                           u_time)
-            radiance, (nq, npairs) = integrator.trace(
-                shade_scene, o, d, tkey, cfg.max_depth, closest,
+            radiance, (nq, nsh, npairs) = integrator.trace(
+                query.scene, o, d, tkey, cfg.max_depth, query.closest,
                 t_min=cfg.t_min, sky=cfg.sky,
-                terminate_black=cfg.terminate_black)
+                terminate_black=cfg.terminate_black, nee=cfg.nee)
             acc[sl] += radiance
             n_queries += nq
+            n_shadow += nsh
             n_pairs += npairs
-    return acc, (n_queries, n_pairs)
+    return acc, (n_queries, n_shadow, n_pairs)
 
 
 class Renderer:
     """``render(scene, cam, seed) -> (H, W, 3)`` for one config on one
-    device; cluster tables are built once per scene and cached."""
+    device; a scene's closest-hit route (cluster tables or sweep tables)
+    is built once and cached."""
 
-    def __init__(self, cfg: RenderConfig, device, with_stats: bool = False):
+    def __init__(self, cfg: RenderConfig, device="cuda",
+                 with_stats: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.with_stats = with_stats
-        self._tables: dict = {}   # id(scene) -> (scene, ClusterTables)
+        self._queries: dict = {}   # id(scene) -> (scene, Query)
         # full float32 everywhere: TF32 would round the sweep's operands
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    def tables(self, scene: Scene) -> ClusterTables:
-        hit = self._tables.get(id(scene))
+    def prepare(self, scene: Scene) -> Query:
+        """The cached :class:`Query` of ``scene`` on this device."""
+        hit = self._queries.get(id(scene))
         if hit is not None and hit[0] is scene:
             return hit[1]
-        ct = build_cluster_tables(scene.to(self.device), K=CLUSTER_K)
-        self._tables = {id(scene): (scene, ct)}
-        return ct
+        query = make_query(scene.to(self.device), self.cfg)
+        self._queries = {id(scene): (scene, query)}
+        return query
 
     def __call__(self, scene: Scene, cam: camera_mod.Camera,
                  seed: Optional[int] = None):
         cfg = self.cfg
-        check_supported(cfg, scene)
+        check_supported(cfg)
         n_pixels = cfg.num_pixels
         chunk = min(cfg.ray_chunk, n_pixels)
         n_padded = -(-n_pixels // chunk) * chunk
@@ -152,20 +202,21 @@ class Renderer:
                                  self.device)
         base_key = prng.PRNGKey(cfg.seed if seed is None else seed)
         acc, stats = render_sum(scene, cam.to(self.device), base_key, rows,
-                                cols, cfg, cfg.spp, self.tables(scene))
+                                cols, cfg, cfg.spp, self.prepare(scene))
         img = torch.sqrt(torch.clamp(acc[:n_pixels], min=0.0) / cfg.spp)
         img = img.reshape(cfg.height, cfg.width, 3)
         return (img, stats) if self.with_stats else img
 
 
-def make_renderer(cfg: RenderConfig, device, with_stats: bool = False):
+def make_renderer(cfg: RenderConfig, device="cuda",
+                  with_stats: bool = False):
     """A :class:`Renderer` for ``cfg`` on ``device``."""
     return Renderer(cfg, device, with_stats=with_stats)
 
 
 def render_image(scene: Scene, cam: camera_mod.Camera, cfg: RenderConfig,
-                 seed: Optional[int] = None, device=None) -> torch.Tensor:
-    """Render with ``cfg`` on ``device`` (default: the scene's device),
-    returning (H, W, 3) f32 with row 0 at the bottom."""
-    device = scene.device if device is None else device
+                 seed: Optional[int] = None, device="cuda") -> torch.Tensor:
+    """Render with ``cfg`` on ``device`` (the scene and camera move there),
+    returning (H, W, 3) f32 with row 0 at the bottom. ``device="cpu"`` runs
+    the plain twins of the kernels."""
     return make_renderer(cfg, device)(scene, cam, seed)

@@ -27,7 +27,7 @@ def resolve_bunny_obj() -> str | None:
 
 def bunny_world(obj_path: str | None = None, scale: float = 20.0,
                 material: str = "lambertian", subdivide: int = 0,
-                device="cpu") -> Tuple[Scene, Camera]:
+                device="cuda") -> Tuple[Scene, Camera]:
     if subdivide:
         raise NotImplementedError(
             "bunny subdivision is not ported yet (ROADMAP Queue 1, item 9)")

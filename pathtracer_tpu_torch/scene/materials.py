@@ -31,12 +31,19 @@ class ScatterResult(NamedTuple):
 
 
 def sample_texture(scene: Scene, tex_id, uv):
-    """Texture lookup; only the texture-free case is ported."""
-    if scene.textures.shape[0] == 0:
+    """Nearest-neighbour texel of texture ``tex_id`` at ``uv`` (N, 2);
+    v = 0 is the bottom row. Coordinates clamp to the edge texels, and
+    ``tex_id`` to the atlas. White when the scene has no textures."""
+    k, th, tw = scene.textures.shape[:3]
+    if k == 0:
         return torch.ones(uv.shape[:-1] + (3,), dtype=torch.float32,
                           device=uv.device)
-    raise NotImplementedError(
-        "image textures are not ported yet (ROADMAP Queue 1, item 8)")
+    u = torch.clamp(uv[..., 0], 0.0, 1.0)
+    v = torch.clamp(uv[..., 1], 0.0, 1.0)
+    x = torch.clamp((u * tw).to(torch.int64), max=tw - 1)
+    y = torch.clamp(((1.0 - v) * th).to(torch.int64), max=th - 1)
+    tid = torch.clamp(tex_id.to(torch.int64), 0, k - 1)
+    return scene.textures[tid, y, x]
 
 
 def scatter(scene: Scene, rec: HitRecords, in_dir, uniforms) -> ScatterResult:

@@ -66,7 +66,7 @@ class Scene(NamedTuple):
         return Scene(*(x.to(device) for x in self))
 
 
-def scene_from_numpy(fields: dict, device) -> Scene:
+def scene_from_numpy(fields: dict, device="cuda") -> Scene:
     """Build a Scene from a dict of numpy arrays keyed by field name."""
     return Scene(**{name: torch.from_numpy(np.array(fields[name])).to(device)
                     for name in Scene._fields})
@@ -79,25 +79,33 @@ class SceneBuilder:
     def __init__(self):
         self._prims = []      # (type, v0, e1, e2, radius, normal, mat)
         self._mats = []       # (type, albedo, fuzz, ir, emit, tex_id)
+        self._textures = []
 
-    def add_lambertian(self, albedo) -> int:
-        return self._add_mat(MAT_LAMBERTIAN, albedo, 0.0, 0.0, (0, 0, 0))
+    def add_lambertian(self, albedo, tex_id: int = -1) -> int:
+        return self._add_mat(MAT_LAMBERTIAN, albedo, 0.0, 0.0, (0, 0, 0),
+                             tex_id)
 
     def add_metal(self, albedo, fuzz: float) -> int:
         return self._add_mat(MAT_METAL, albedo, min(fuzz, 1.0), 0.0,
-                             (0, 0, 0))
+                             (0, 0, 0), -1)
 
     def add_dielectric(self, ir: float) -> int:
-        return self._add_mat(MAT_DIELECTRIC, (0, 0, 0), 0.0, ir, (0, 0, 0))
+        return self._add_mat(MAT_DIELECTRIC, (0, 0, 0), 0.0, ir, (0, 0, 0),
+                             -1)
 
     def add_emissive(self, emit) -> int:
-        return self._add_mat(MAT_EMISSIVE, (0, 0, 0), 0.0, 0.0, emit)
+        return self._add_mat(MAT_EMISSIVE, (0, 0, 0), 0.0, 0.0, emit, -1)
 
-    def _add_mat(self, mtype, albedo, fuzz, ir, emit) -> int:
+    def _add_mat(self, mtype, albedo, fuzz, ir, emit, tex_id) -> int:
         self._mats.append((mtype, np.asarray(albedo, np.float32),
                            float(fuzz), float(ir),
-                           np.asarray(emit, np.float32), -1))
+                           np.asarray(emit, np.float32), int(tex_id)))
         return len(self._mats) - 1
+
+    def add_texture(self, image) -> int:
+        """Register an (H, W, >=3) image texture; returns its tex_id."""
+        self._textures.append(np.asarray(image, np.float32))
+        return len(self._textures) - 1
 
     def add_sphere(self, center, radius: float, mat: int):
         """Signed radius; AABB from |radius|."""
@@ -127,7 +135,7 @@ class SceneBuilder:
             self.add_triangle(vertices[f[0]], vertices[f[1]],
                               vertices[f[2]], mat)
 
-    def build(self, device="cpu") -> Scene:
+    def build(self, device="cuda") -> Scene:
         if not self._prims:
             raise ValueError("empty scene")
         ptype = np.array([p[0] for p in self._prims], np.int32)
@@ -154,6 +162,20 @@ class SceneBuilder:
         mtype = np.array([m[0] for m in self._mats], np.int32)
         light_idx = np.nonzero(mtype[pmat] == MAT_EMISSIVE)[0].astype(
             np.int32)
+        if self._textures:
+            # one (K, TH, TW, 3) atlas at the largest height and width;
+            # smaller images are nearest-neighbour resampled to it
+            th = max(t.shape[0] for t in self._textures)
+            tw = max(t.shape[1] for t in self._textures)
+            atlas = np.zeros((len(self._textures), th, tw, 3), np.float32)
+            for i, t in enumerate(self._textures):
+                if t.shape[:2] != (th, tw):
+                    yi = np.arange(th) * t.shape[0] // th
+                    xi = np.arange(tw) * t.shape[1] // tw
+                    t = t[yi][:, xi]
+                atlas[i] = t[..., :3]
+        else:
+            atlas = np.zeros((0, 1, 1, 3), np.float32)
         fields = dict(
             prim_type=ptype, v0=v0, e1=e1, e2=e2, radius=radius,
             tri_normal=tri_n, prim_mat=pmat, box_min=box_min,
@@ -164,5 +186,5 @@ class SceneBuilder:
             emit=np.stack([m[4] for m in self._mats]),
             tex_id=np.array([m[5] for m in self._mats], np.int32),
             world_min=world_min, world_max=world_max, light_idx=light_idx,
-            textures=np.zeros((0, 1, 1, 3), np.float32))
+            textures=atlas)
         return scene_from_numpy(fields, device)

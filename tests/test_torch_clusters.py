@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 
 def _port_scene(js):
     return scene_from_jax_arrays({f: np.asarray(getattr(js, f))
-                                  for f in js._fields})
+                                  for f in js._fields}, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +103,7 @@ def test_huge_clamp_and_lights_match():
     b.add_triangle((0, 4, 0), (1, 4, 0), (0, 4, 1), light)
     for i in range(tclusters.K_RES + 3):
         b.add_sphere((i * 40.0 - 200.0, -60.0, 0.0), 50.0 + i, m)
-    ts = b.build()
+    ts = b.build(device="cpu")
     fields = {f: getattr(ts, f).numpy() for f in ts._fields}
     from pathtracer_tpu.scene.scene import Scene as JScene
     js = JScene(**{f: jnp.asarray(v) for f, v in fields.items()})

@@ -13,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.config import K_SHADOW_T_MIN, RenderConfig
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core.camera import get_rays
-from pathtracer_tpu_torch.ops import cluster_sweep
+from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+from pathtracer_tpu_torch.ops.tensor_sweep import pack_sweep_tables
+from pathtracer_tpu_torch.presets import get_preset
 from pathtracer_tpu_torch.render.renderer import make_renderer
 from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE
 from pathtracer_tpu_torch.scene.worlds import get_world
@@ -49,6 +51,21 @@ def _wavefront(name, cam, n, dev):
     return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
 
 
+def _assert_hits_match(t_k, b_k, t_r, b_r, prim_type):
+    """Kernel (t, best) against twin (t, best), best -1 on a miss."""
+    v_k, v_r = b_k >= 0, b_r >= 0
+    assert (v_k == v_r).mean() >= 0.999
+    both = v_k & v_r
+    assert (b_k == b_r)[both].mean() >= 0.999
+    dt = np.abs(t_k - t_r)
+    differ = both & (b_k != b_r)
+    assert (dt[differ] <= 1e-5 * np.abs(t_r[differ])).all()
+    sph = both & (prim_type[np.maximum(b_r, 0)] == PRIM_SPHERE)
+    tri = both & ~sph
+    np.testing.assert_allclose(t_k[tri], t_r[tri], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(t_k[sph], t_r[sph], rtol=1e-5, atol=2e-4)
+
+
 @pytest.mark.parametrize("name", ["camera", "bounce", "dead"])
 @pytest.mark.parametrize("n", [512, 57600])
 def test_march_kernel_matches_twin(gpu, name, n):
@@ -63,18 +80,7 @@ def test_march_kernel_matches_twin(gpu, name, n):
     t_r, b_r, s_r = (x.cpu().numpy() for x in cluster_sweep.march_reference(
         *q["args"]))
     assert cluster_sweep.MARCH_LAUNCHES == before + 1
-    v_k, v_r = b_k >= 0, b_r >= 0
-    assert (v_k == v_r).mean() >= 0.999
-    both = v_k & v_r
-    assert (b_k == b_r)[both].mean() >= 0.999
-    dt = np.abs(t_k - t_r)
-    differ = both & (b_k != b_r)
-    assert (dt[differ] <= 1e-5 * np.abs(t_r[differ])).all()
-    prim_type = ct.scene.prim_type.cpu().numpy()
-    sph = both & (prim_type[np.maximum(b_r, 0)] == PRIM_SPHERE)
-    tri = both & ~sph
-    np.testing.assert_allclose(t_k[tri], t_r[tri], rtol=1e-5, atol=0)
-    np.testing.assert_allclose(t_k[sph], t_r[sph], rtol=1e-5, atol=2e-4)
+    _assert_hits_match(t_k, b_k, t_r, b_r, ct.scene.prim_type.cpu().numpy())
     assert abs(int(s_k.sum()) - int(s_r.sum())) <= 0.001 * s_r.sum()
 
 
@@ -105,4 +111,71 @@ def test_small_render_matches_cpu(gpu):
     c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
     diff = np.abs(g - c)
     assert np.isfinite(g).all()
+    assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3
+
+
+def _dense_scene(name, dev):
+    if name == "triangle":
+        return get_world("triangle", device=dev)
+    scene, cam, _ = get_preset("cornell-full", device=dev)
+    return scene, cam
+
+
+@pytest.mark.parametrize("name,kind,t_min", [
+    ("triangle", "camera", T_MIN), ("cornell", "camera", T_MIN),
+    ("cornell", "dead", T_MIN), ("cornell", "camera", K_SHADOW_T_MIN)])
+@pytest.mark.parametrize("n", [512, 90000])
+def test_dense_kernel_matches_twin(gpu, name, kind, t_min, n):
+    scene, cam = _dense_scene(name, gpu)
+    kt = pallas_sweep.kernel_tables(pack_sweep_tables(
+        scene, tile=pallas_sweep.DEF_PRIM_TILE))
+    o, d = _wavefront("camera", cam, n, gpu)
+    if kind == "dead":
+        d[::5] = 0.0
+    args = pallas_sweep.sweep_inputs(kt, o, d, t_min)
+    before = pallas_sweep.SWEEP_LAUNCHES
+    t_k, b_k = (x.cpu().numpy() for x in pallas_sweep.sweep(*args))
+    assert pallas_sweep.SWEEP_LAUNCHES == before + 1
+    t_r, b_r = (x.cpu().numpy() for x in pallas_sweep.sweep_reference(*args))
+    assert pallas_sweep.SWEEP_LAUNCHES == before + 1
+    _assert_hits_match(t_k, b_k, t_r, b_r, scene.prim_type.cpu().numpy())
+    assert (b_k >= 0).sum() > n // 4
+    if kind == "dead":
+        assert (b_k[::5] == -1).all()
+
+
+def test_dense_wrapper_rejects_bad_inputs(gpu):
+    scene, cam = get_world("triangle", device=gpu)
+    kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=640))
+    o, d = _wavefront("camera", cam, 300, gpu)
+    args = list(pallas_sweep.sweep_inputs(kt, o, d, T_MIN))
+    for i, bad_x, err in ((0, args[0].double(), TypeError),
+                          (1, args[1].cpu(), ValueError),
+                          (2, args[2][:, :, :-4], ValueError),
+                          (0, args[0].t().contiguous().t(), ValueError)):
+        bad = list(args)
+        bad[i] = bad_x
+        with pytest.raises(err):
+            pallas_sweep.sweep(*bad)
+    # a tile that the kernel cannot stage (not a multiple of 64)
+    kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=128))
+    with pytest.raises(ValueError):
+        pallas_sweep.sweep(*pallas_sweep.sweep_inputs(
+            (kt[0][:, :, :4 * 100].contiguous(), kt[1][:, :100].contiguous(),
+             kt[2][:, :100].contiguous()), o, d, T_MIN))
+
+
+def test_small_cornell_render_matches_cpu(gpu):
+    """cornell-full with NEE, stratify and textures through the dense
+    sweep kernel on the card, against the same render on the CPU."""
+    scene, cam, cfg = get_preset("cornell-full", device=gpu)
+    cfg = cfg.replace(width=32, height=32, spp=4, max_depth=3,
+                      ray_chunk=1024, accel="pallas", seed=3)
+    pallas_sweep.SWEEP_LAUNCHES = 0
+    g = make_renderer(cfg, gpu)(scene, cam).cpu().numpy()
+    assert pallas_sweep.SWEEP_LAUNCHES > 0
+    scene_c, cam_c, _ = get_preset("cornell-full", device="cpu")
+    c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
+    diff = np.abs(g - c)
+    assert np.isfinite(g).all() and g.mean() > 0.05
     assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3

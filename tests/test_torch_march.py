@@ -41,7 +41,7 @@ N = 512
 def bunny():
     js, jc = jworlds.get_world("bunny")
     ts = scene_from_jax_arrays({f: np.asarray(getattr(js, f))
-                                for f in js._fields})
+                                for f in js._fields}, device="cpu")
     return dict(js=js, jc=jc, ts=ts,
                 jct=jclusters.build_cluster_tables(js, K=64),
                 tct=tclusters.build_cluster_tables(ts, K=64))
@@ -166,6 +166,62 @@ def test_unaligned_wavefront_and_t_max(bunny):
             **kw)]
         assert t[0].shape == (300,)
         _check_pair(*t, *j, bunny["tct"].scene.prim_type.numpy())
+
+
+def test_query_shadow_matches_jax(bunny):
+    """The NEE shadow query of the march factory: near-zero t_min
+    (K_SHADOW_T_MIN) and t_max = 1 on the unnormalized segment, caller
+    order, against the reference's ``query_shadow``. Half of the segments
+    start just behind a triangle, which they meet at t ~ 1e-4: a query at
+    the bounce t_min (1e-3) would miss those occluders.
+
+    The far half keeps the module's tolerances. On the contact half, flags
+    and winners must agree exactly, but t there is a difference of pair
+    scalars of size |o||d| ~ 1e2 divided by det, and float32 leaves about
+    1e-5 of absolute error in it in both packages (against a float64
+    Moller-Trumbore oracle: 1.2e-5 in the port, 6.3e-6 in the reference),
+    so t is held to atol 3e-5 there: far below the 1e-3 that separates a
+    contact occluder from a bounce-t_min miss."""
+    from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
+    rng = np.random.default_rng(11)
+    scene = bunny["tct"].scene
+    tri = np.nonzero(scene.prim_type.numpy() != PRIM_SPHERE)[0]
+    pick = rng.choice(tri, N // 2)
+    v0, e1, e2 = (getattr(scene, f).numpy()[pick] for f in ("v0", "e1",
+                                                             "e2"))
+    q = v0 + 0.3 * e1 + 0.3 * e2
+    light = rng.uniform((-6, 2, -6), (6, 12, 6), (N, 3)).astype(np.float32)
+    o = np.empty((N, 3), np.float32)
+    o[:N // 2] = q - 1e-4 * (light[:N // 2] - q)
+    o[N // 2:] = rng.uniform((-8, 0.2, -8), (8, 6, 8), (N // 2, 3))
+    d = (light - o).astype(np.float32)
+    active = rng.random(N) < 0.9
+    d_q = np.where(active[:, None], d, 0.0).astype(np.float32)
+
+    jshadow = jsweep.make_cluster_closest_hit(bunny["jct"],
+                                              T_MIN).query_shadow
+    j = [np.asarray(x) for x in jshadow(jnp.asarray(o), jnp.asarray(d_q),
+                                        jnp.asarray(active))]
+    tshadow = tsweep.make_cluster_closest_hit(bunny["tct"],
+                                              T_MIN).query_shadow
+    t = [x.numpy() for x in tshadow(torch.from_numpy(o),
+                                    torch.from_numpy(d_q),
+                                    torch.from_numpy(active))]
+    assert t[0].shape == (N,)
+    far = slice(N // 2, N)
+    _check_pair(*(x[far] for x in t), *(x[far] for x in j),
+                scene.prim_type.numpy())
+    contact = slice(0, N // 2)
+    np.testing.assert_array_equal(t[2][contact], j[2][contact])
+    hit = t[2][contact]
+    np.testing.assert_array_equal(t[0][contact][hit], j[0][contact][hit])
+    np.testing.assert_allclose(t[1][contact][hit], j[1][contact][hit],
+                               rtol=0, atol=3e-5)
+    assert not t[2][~active].any()
+    assert (t[1][t[2]] < 1.0).all()
+    # contact occluders that only the near-zero t_min sees
+    near = t[2] & (t[1] < T_MIN)
+    assert near.sum() > N // 8 and (t[1][near] > K_SHADOW_T_MIN).all()
 
 
 def test_port_brute_force_matches_reference(bunny):

@@ -1,37 +1,58 @@
 """Port scene, camera and config against the JAX reference.
 
 The port's SceneBuilder worlds must produce the reference's scene fields
-bit for bit (same numpy host build), the camera must match, and config
-validation / accel resolution must agree.
+(textures included) bit for bit (same numpy host build), the camera must
+match, and config validation / accel resolution must agree. Entry points
+default to the GPU, so every port call here passes ``device="cpu"``.
 """
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pathtracer_tpu import config as jconfig
+from pathtracer_tpu import presets as jpresets
 from pathtracer_tpu.scene import bunny as jbunny
+from pathtracer_tpu.scene import cornell as jcornell
 from pathtracer_tpu.scene import worlds as jworlds
 from pathtracer_tpu_torch import config as tconfig
+from pathtracer_tpu_torch import presets as tpresets
 from pathtracer_tpu_torch.convert import scene_from_jax_arrays
 from pathtracer_tpu_torch.core import camera as tcamera
 from pathtracer_tpu_torch.scene import bunny as tbunny
+from pathtracer_tpu_torch.scene import cornell as tcornell
 from pathtracer_tpu_torch.scene import worlds as tworlds
 
 torch.set_num_threads(1)
 
 
-def _worlds(name):
+def _worlds(name, empty_dir, monkeypatch):
+    """(JAX (scene, cam), port (scene, cam)) of a named world; both take
+    the vendored bunny and the built-in Cornell data, whatever else is
+    installed."""
+    monkeypatch.setenv("PT_BUNNY_OBJ", tbunny.ASSET_OBJ)
+    monkeypatch.delenv("PT_CORNELL_DIR", raising=False)
     if name == "bunny":
-        # both packages read the vendored asset, whatever else is installed
         return (jbunny.bunny_world(obj_path=tbunny.ASSET_OBJ),
-                tbunny.bunny_world(obj_path=tbunny.ASSET_OBJ))
-    return jworlds.get_world(name), tworlds.get_world(name)
+                tbunny.bunny_world(obj_path=tbunny.ASSET_OBJ, device="cpu"))
+    if name.startswith("cornell"):
+        variant = name.split("-")[1]
+        return (jcornell.cornell_box(obj_dir=empty_dir, variant=variant),
+                tcornell.cornell_box(variant=variant, device="cpu"))
+    if name == "combined":
+        monkeypatch.setattr(jcornell, "CORNELL_DIR", empty_dir)
+        return (jpresets.combined_scene(),
+                tpresets.combined_scene(device="cpu"))
+    return jworlds.get_world(name), tworlds.get_world(name, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["bunny", "test"])
-def test_scene_fields_equal(name):
-    (js, jc), (ts, tc) = _worlds(name)
+@pytest.mark.parametrize("name", ["bunny", "test", "triangle", "random",
+                                  "cornell-spheres", "cornell-full",
+                                  "combined"])
+def test_scene_fields_equal(name, tmp_path, monkeypatch):
+    (js, jc), (ts, tc) = _worlds(name, str(tmp_path), monkeypatch)
     assert ts.num_prims == js.num_prims
     for field in js._fields:
         a = np.asarray(getattr(js, field))
@@ -45,27 +66,46 @@ def test_scene_fields_equal(name):
 
 
 def test_bunny_prim_count():
-    ts, _ = tbunny.bunny_world(obj_path=tbunny.ASSET_OBJ)
+    ts, _ = tbunny.bunny_world(obj_path=tbunny.ASSET_OBJ, device="cpu")
     # 3,616 mesh triangles + ground, mirror and glass spheres
     assert ts.num_prims == 3619
+
+
+def test_scene_sizes_and_textures():
+    """The slice's small scenes stay under the auto crossover (dense
+    routes); cornell-full stacks an 8x16 checker and the 128x128 marble
+    PNG into one atlas, the checker resampled nearest-neighbour."""
+    sizes = {"triangle": 601, "random": 405, "test": 3}
+    for name, n in sizes.items():
+        ts, _ = tworlds.get_world(name, device="cpu")
+        assert ts.num_prims == n
+        assert tconfig.resolve_accel("auto", n) == "tensor"
+    ts, _ = tcornell.cornell_box(variant="full", device="cpu")
+    assert ts.num_lights == 2 and ts.textures.shape == (2, 128, 128, 3)
+    checker = ts.textures[0].numpy()
+    np.testing.assert_array_equal(checker[0, 0], np.float32([0.9, 0.9,
+                                                             0.85]))
+    np.testing.assert_array_equal(checker[0, 8], np.float32([0.15, 0.25,
+                                                             0.5]))
+    assert sorted(ts.tex_id.tolist()).count(-1) == ts.num_materials - 2
 
 
 def test_converter_round_trip():
     js, _ = jworlds.get_world("test")
     fields = {f: np.asarray(getattr(js, f)) for f in js._fields}
-    ts = scene_from_jax_arrays(fields)
+    ts = scene_from_jax_arrays(fields, device="cpu")
     for f, a in fields.items():
         back = getattr(ts, f).numpy()
         np.testing.assert_array_equal(back, a, err_msg=f)
         assert back.dtype == a.dtype, f
     with pytest.raises(KeyError):
-        scene_from_jax_arrays({"v0": fields["v0"]})
+        scene_from_jax_arrays({"v0": fields["v0"]}, device="cpu")
 
 
 def test_get_rays_matches():
     from pathtracer_tpu.core.camera import get_rays as jget_rays
     _, jc = jworlds.get_world("test")
-    _, cam = tworlds.get_world("test")
+    _, cam = tworlds.get_world("test", device="cpu")
     rng = np.random.default_rng(3)
     u = rng.random((5, 257), dtype=np.float32)
     jo, jd, jt = jget_rays(jc, *(jnp.asarray(x) for x in u))
@@ -97,24 +137,40 @@ def test_render_config_matches():
 
 
 def test_off_slice_raises():
-    from pathtracer_tpu_torch.render.renderer import render_image
-    ts, tc = tworlds.get_world("test")
+    from pathtracer_tpu_torch.render.renderer import render_image, render_sum
+    ts, tc = tworlds.get_world("test", device="cpu")
     small = dict(width=8, height=4, spp=1, max_depth=1, ray_chunk=32)
-    # auto on a 3-prim scene resolves to the unported dense sweep
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        render_image(ts, tc, tconfig.RenderConfig(**small))
-    for kw in (dict(nee=True), dict(rr=True), dict(sampler="sobol"),
-               dict(stratify=True)):
+    for kw in (dict(rr=True), dict(sampler="sobol")):
         with pytest.raises(NotImplementedError, match="item 8"):
-            render_image(ts, tc, tconfig.RenderConfig(accel="cluster",
-                                                      **small, **kw))
-    for name in ("random", "cornell"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tworlds.get_world(name)
+            render_image(ts, tc, tconfig.RenderConfig(**small, **kw),
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        render_image(ts, tc, tconfig.RenderConfig(accel="bvh", **small),
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
-        tbunny.bunny_world(subdivide=1)
-    from pathtracer_tpu_torch.render.renderer import render_sum
+        tbunny.bunny_world(subdivide=1, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         render_sum(ts, tc, (0, 0), None, None,
                    tconfig.RenderConfig(accel="cluster", **small), 1, None,
                    differentiable=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tpresets.get_preset("cornell-diff", device="cpu")
+
+
+def test_entry_points_default_to_cuda():
+    """Every public factory and entry point renders or builds on the GPU
+    unless the caller passes device="cpu"; without a GPU they raise rather
+    than fall back."""
+    from pathtracer_tpu_torch.render import renderer
+    from pathtracer_tpu_torch.scene.scene import SceneBuilder
+    for fn in (tworlds.get_world, tworlds.test_world, tworlds.triangle_world,
+               tworlds.random_world, tbunny.bunny_world,
+               tcornell.cornell_box, tpresets.get_preset,
+               tpresets.combined_scene, SceneBuilder.build,
+               tcamera.make_camera, scene_from_jax_arrays,
+               renderer.render_image, renderer.make_renderer):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__qualname__
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            tworlds.get_world("test")

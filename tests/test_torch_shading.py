@@ -78,7 +78,7 @@ def test_scatter_matches():
     """Every material of the bunny world, front and back faces."""
     js, _ = jworlds.get_world("bunny")
     ts = scene_from_jax_arrays({f: np.asarray(getattr(js, f))
-                                for f in js._fields})
+                                for f in js._fields}, device="cpu")
     rng = np.random.default_rng(5)
     d = _unit(6) * 2.0
     normal = _unit(7)
