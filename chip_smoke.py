@@ -16,17 +16,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    dense sweep on the triangle world's 90,000-ray camera wavefront, the
    cornell-full 65,536-ray camera wavefront and a cornell-full shadow
    wavefront (t_min = K_SHADOW_T_MIN), with the ``tensor`` route (the
-   ``auto`` choice for these scenes) timed at the same shapes;
+   ``auto`` choice for these scenes) timed at the same shapes; the window
+   sweep of the rounds strategy (K=128 tables) on the 57,600-ray bunny
+   camera wavefront's residual pass, first round and full-width fallback,
+   which must agree with the twin to the bit;
 4. main paths through the CLI's code path, each with every launch counter
    reset just before it and read just after: the bunny at 640x360, 8 spp,
    depth 4 (cluster march); cornell-full at 256x256, 64 spp, depth 4 with
    NEE, stratified jitter and textures (dense sweep); the triangle world at
-   the reference's default, 800x450, 100 spp, depth 50 (dense sweep).
-   Each checks finite pixels and the image mean and writes out/;
+   the reference's default, 800x450, 100 spp, depth 50 (dense sweep); the
+   bunny again on the rounds route (PT_CLUSTER_STRATEGY=rounds,
+   PT_CLUSTER_K=128: window sweep, no march), whose image must agree with
+   the march's. Each checks finite pixels and the image mean and writes
+   out/;
 5. end to end: small renders on the card against the same renders on the
    CPU (the plain twins, which the CPU tests hold against the JAX
    reference): the bunny, cornell-full through the dense sweep with NEE,
-   and the bunny in the Cornell room with NEE on the march.
+   the bunny in the Cornell room with NEE on the march, and the bunny on
+   the rounds route with the Sobol sampler, Russian roulette and black
+   termination.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound; the last line is
@@ -34,12 +42,14 @@ source, launches on its main path, error, times and bound; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -48,6 +58,8 @@ TRI_RAYS = 90000       # triangle world chunk (800x450 / 4)
 CORNELL_RAYS = 65536   # cornell-full chunk (256x256)
 TRIANGLE_SPP = 100     # the reference's default; cut spp first for time
 T_MIN = 1e-3
+ROUNDS_K = 128         # the rounds strategy needs K % 128 == 0
+ROUNDS_ENV = {"PT_CLUSTER_STRATEGY": "rounds", "PT_CLUSTER_K": str(ROUNDS_K)}
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
 # outside the tensor cores
@@ -104,6 +116,13 @@ def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
+def real_rows(ct, scene):
+    """(C_tot, K) bool: the cluster tables' rows that hold one of the
+    scene's primitives, not the inert padding (which the tables mark valid,
+    as the reference's do)."""
+    return (ct.perm < scene.num_prims).view(ct.cols.shape[0], ct.K)
+
+
 def compare_hits(what, t_k, b_k, t_r, b_r, prim_type):
     """Kernel (t, best) vs twin (t, best) on the CPU as numpy; best is -1
     on a miss. Fails on disagreement; returns max |dt| on lanes both
@@ -127,6 +146,22 @@ def compare_hits(what, t_k, b_k, t_r, b_r, prim_type):
         fail(f"{what}: sphere t beyond rtol 1e-5 + atol 2e-4: "
              f"{dt[sph].max()}")
     return float(dt[both].max()) if both.any() else 0.0
+
+
+@contextlib.contextmanager
+def environ(env):
+    """Set the environment variables ``env`` inside the block; restore them
+    after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def check_image(name, img_np, shape, lo, hi):
@@ -182,7 +217,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build, every source at once
-    kernels = ("cluster_march", "dense_sweep")
+    kernels = ("cluster_march", "dense_sweep", "window_sweep")
     t0 = time.perf_counter()
     _cuda_build.build_all(kernels)
     for name in kernels:
@@ -235,9 +270,10 @@ def main() -> int:
             fail(f"march {name}: slots marched differ: kernel {tot_k}, "
                  f"twin {tot_r}")
         # executed pairs: each chunk's first `slots` clusters x its lanes,
-        # by the prim types of each cluster
+        # by the prim types of each cluster's real rows (the padding rows
+        # that fill the last cluster are swept, but the function needs none)
         ids, slots = args[3], kernel[2]
-        live_rows = args[7] != 0
+        live_rows = real_rows(ct, scene)
         sph_rows = (args[6] != 0) | (args[8] == 1)[:, None]
         n_sph_c = (live_rows & sph_rows).sum(1).double()
         n_tri_c = (live_rows & ~sph_rows).sum(1).double()
@@ -308,14 +344,69 @@ def main() -> int:
               f"{ops / 1e9:.4f} GFLOP); tensor route (auto) {tensor_ms:.4f}"
               f" ms [{card}]")
 
+    # 3c. the window sweep (rounds strategy, K=128) against its twin, on the
+    # launches of one rounds query of the bunny camera wavefront
+    ct128 = build_cluster_tables(scene, K=ROUNDS_K)
+    prim128 = ct128.scene.prim_type.cpu().numpy()
+    with mock.patch.object(cluster_sweep, "window_sweep",
+                           wraps=cluster_sweep.window_sweep) as spy:
+        cluster_sweep.cluster_closest(ct128, o_cam, d_cam, T_MIN)
+    captured = [call.args for call in spy.call_args_list]
+    if len(captured) < 2 or captured[0][8] != 1 or captured[1][8] != 4:
+        fail(f"rounds query: expected a W=1 residual pass and a W=4 round, "
+             f"got widths {[c[8] for c in captured]}")
+    res_args = captured[0]
+    n_chunks = res_args[2].shape[0]
+    zeros = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
+    fb_args = res_args[:2] + (zeros, zeros) + res_args[4:8] + (
+        ct128.C_reg,) + res_args[9:]
+    C_tot = ct128.cols.shape[0]
+    real128 = real_rows(ct128, scene)
+    sph128 = ct128.is_sphere.view(C_tot, ROUNDS_K) != 0
+    ops_cluster = (OPS_SPHERE_PAIR * (real128 & sph128).sum(1)
+                   + OPS_TRI_PAIR * (real128 & ~sph128).sum(1)).double()
+    window_err = 0.0
+    window = {}
+    for name, args in (("residual", res_args), ("round 1", captured[1]),
+                       ("fallback", fb_args)):
+        kernel = cluster_sweep.window_sweep(*args)
+        torch.cuda.synchronize()
+        twin = cluster_sweep.window_reference(*args)
+        t_k, b_k = (x.cpu().numpy() for x in kernel)
+        t_r, b_r = (x.cpu().numpy() for x in twin)
+        err = compare_hits(f"window {name}", t_k, b_k, t_r, b_r, prim128)
+        if not (np.array_equal(b_k, b_r) and np.array_equal(t_k, t_r)):
+            fail(f"window {name}: kernel and twin are not bit-equal")
+        window_err = max(window_err, err)
+        # operations: every swept chunk's W clusters, each real prim by its
+        # type
+        starts, skips, W = args[2], args[3], args[8]
+        swept = skips == 0
+        c = (starts[swept].long()[:, None]
+             + torch.arange(W, device=dev)[None, :])
+        ops = args[10] * float(ops_cluster[c].sum())
+        b_ms, b_by = bound(nbytes(*args[:7], *kernel), ops)
+        ms = cuda_ms(lambda: cluster_sweep.window_sweep(*args), torch)
+        plain_ms = cuda_ms(lambda: cluster_sweep.window_reference(*args),
+                           torch)
+        window[name] = (ms, plain_ms, b_ms, b_by)
+        print(f"window {name} (W={W}, {int(swept.sum())} of {n_chunks} "
+              f"chunks swept, {int((b_k >= 0).sum())} hits, max |dt| "
+              f"{err:.3g}): kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.4f} GFLOP) [{card}]")
+
     # 4. the main paths through the CLI's code path
-    def run_cli(argv, out_png):
+    def run_cli(argv, out_png, env=None):
         args = cli.build_parser().parse_args(
             argv + ["--device", DEVICE, "-o", out_png])
-        cluster_sweep.MARCH_LAUNCHES = 0
-        pallas_sweep.SWEEP_LAUNCHES = 0
-        img, seconds, cfg, stats = cli.render_cli(args)
-        counts = (cluster_sweep.MARCH_LAUNCHES, pallas_sweep.SWEEP_LAUNCHES)
+        with environ(env or {}):
+            cluster_sweep.MARCH_LAUNCHES = 0
+            cluster_sweep.WINDOW_LAUNCHES = 0
+            pallas_sweep.SWEEP_LAUNCHES = 0
+            img, seconds, cfg, stats = cli.render_cli(args)
+            counts = (cluster_sweep.MARCH_LAUNCHES,
+                      pallas_sweep.SWEEP_LAUNCHES,
+                      cluster_sweep.WINDOW_LAUNCHES)
         img_np = img.numpy()
         os.makedirs(os.path.dirname(out_png), exist_ok=True)
         write_png(out_png, img_np)
@@ -330,19 +421,22 @@ def main() -> int:
               f"{nominal / seconds / 1e6:.4f} Mrays/s nominal, "
               f"{n_queries / seconds / 1e6:.4f} Mrays/s executed, "
               f"{n_shadow:.0f} shadow rays, {counts[0]} march launches, "
-              f"{counts[1]} sweep launches, {n_pairs:.0f} march pair tests,"
+              f"{counts[1]} sweep launches, {counts[2]} window launches, "
+              f"{n_pairs:.0f} march pair tests,"
               f" image mean {mean:.5f} [{card}]")
 
     out = os.path.join(HERE, "out")
+    bunny_argv = ["--scene", "bunny", "--width", "640", "--height", "360",
+                  "--spp", "8", "--max-depth", "4", "--ray-chunk", str(RAYS)]
     img_np, seconds, cfg, stats, counts = run_cli(
-        ["--scene", "bunny", "--width", "640", "--height", "360", "--spp",
-         "8", "--max-depth", "4", "--ray-chunk", str(RAYS)],
-        os.path.join(out, "chip_smoke_bunny.png"))
+        bunny_argv, os.path.join(out, "chip_smoke_bunny.png"))
     march_launches = counts[0]
-    if march_launches <= 0:
-        fail("the bunny path launched no march kernel")
+    if march_launches <= 0 or counts[2] != 0:
+        fail(f"the bunny path launched {counts[0]} march and {counts[2]} "
+             f"window kernels")
     mean = check_image("bunny", img_np, (360, 640, 3), 0.3, 0.95)
     report("bunny", seconds, cfg, stats, counts, mean)
+    march_img = img_np
 
     img_np, seconds, cfg, stats, counts = run_cli(
         ["--preset", "cornell-full", "--accel", "pallas", "--ray-chunk",
@@ -366,12 +460,30 @@ def main() -> int:
     mean = check_image("triangle", img_np, (450, 800, 3), 0.1, 0.95)
     report("triangle", seconds, cfg, stats, counts, mean)
 
+    # the rounds strategy: a cross-check route of the march, not a target
+    img_np, seconds, cfg, stats, counts = run_cli(
+        bunny_argv, os.path.join(out, "chip_smoke_bunny_rounds.png"),
+        env=ROUNDS_ENV)
+    window_launches = counts[2]
+    if window_launches <= 0 or counts[0] != 0:
+        fail(f"the rounds bunny path launched {counts[2]} window and "
+             f"{counts[0]} march kernels")
+    mean = check_image("bunny (rounds)", img_np, (360, 640, 3), 0.3, 0.95)
+    report("bunny (rounds)", seconds, cfg, stats, counts, mean)
+    diff = np.abs(img_np - march_img)
+    close = float((diff <= 1e-4).mean())
+    print(f"bunny rounds vs march image: {close:.5f} of channels within "
+          f"1e-4, mean |diff| {diff.mean():.3g}")
+    if close < 0.99 or diff.mean() > 1e-3:
+        fail("the rounds bunny image disagrees with the march bunny image")
+
     # 5. small renders: card vs CPU twins
-    def card_vs_cpu(name, make, cfg, lo):
-        scene_g, cam_g = make(dev)
-        g = make_renderer(cfg, dev)(scene_g, cam_g).cpu().numpy()
-        scene_c, cam_c = make("cpu")
-        c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
+    def card_vs_cpu(name, make, cfg, lo, env=None):
+        with environ(env or {}):
+            scene_g, cam_g = make(dev)
+            g = make_renderer(cfg, dev)(scene_g, cam_g).cpu().numpy()
+            scene_c, cam_c = make("cpu")
+            c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
         diff = np.abs(g - c)
         close = float((diff <= 1e-4).mean())
         print(f"small render {name} card vs CPU twins: {close:.5f} of "
@@ -397,8 +509,19 @@ def main() -> int:
                 RenderConfig(width=32, height=18, spp=1, max_depth=3,
                              ray_chunk=576, accel="cluster", sky=False,
                              nee=True, scene="combined", seed=2), 0.05)
+    cluster_sweep.WINDOW_LAUNCHES = 0
+    card_vs_cpu("bunny (rounds, Sobol, Russian roulette, black termination)",
+                lambda d: get_world("bunny", device=d),
+                RenderConfig(width=64, height=36, spp=2, max_depth=3,
+                             ray_chunk=64 * 36, accel="cluster",
+                             scene="bunny", seed=5, sampler="sobol", rr=True,
+                             rr_depth=1, terminate_black=True), 0.2,
+                env=ROUNDS_ENV)
+    if cluster_sweep.WINDOW_LAUNCHES <= 0:
+        fail("the small rounds render launched no window kernel")
 
     k2 = sweep["cornell-full camera"]
+    k3 = window["round 1"]
     print(json.dumps({"kernels": [{
         "name": "cluster_march", "route": "cuda",
         "source": "pathtracer_tpu_torch/csrc/cluster_march.cu",
@@ -412,7 +535,13 @@ def main() -> int:
         "replaces": "pathtracer_tpu/ops/pallas_sweep.py:41",
         "launches": sweep_launches, "max_abs_err": sweep_err,
         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2],
-        "bound_by": k2[3], "library_ms": None}]}))
+        "bound_by": k2[3], "library_ms": None}, {
+        "name": "window_sweep", "route": "cuda",
+        "source": "pathtracer_tpu_torch/csrc/window_sweep.cu",
+        "replaces": "pathtracer_tpu/ops/cluster_sweep.py:66",
+        "launches": window_launches, "max_abs_err": window_err,
+        "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[2],
+        "bound_by": k3[3], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

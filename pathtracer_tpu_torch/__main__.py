@@ -7,7 +7,12 @@ Usage:
         --ray-chunk 65536 -o out/cornell.png
 
 The render runs on ``cuda``; ``--device cpu`` runs the plain PyTorch
-twins instead (for tests, at small sizes).
+twins instead (for tests, at small sizes). The cluster route reads the
+reference's knobs from the environment (``render/renderer.cluster_options``):
+
+    PT_CLUSTER_STRATEGY=rounds PT_CLUSTER_K=128 \\
+        python -m pathtracer_tpu_torch --scene bunny --ray-chunk 57600 \\
+        -o out/bunny_rounds.png
 """
 from __future__ import annotations
 
@@ -48,6 +53,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "with emissive lights)")
     p.add_argument("--no-sky", action="store_true",
                    help="black background (emissive-lit scenes)")
+    p.add_argument("--sampler", default="random",
+                   choices=["random", "sobol"],
+                   help="pixel-filter sampler: uniform jitter or per-pixel "
+                        "Owen-scrambled Sobol")
+    p.add_argument("--rr", action="store_true",
+                   help="Russian-roulette termination after --rr-depth "
+                        "bounces (continue 0.8, survivors x1.25)")
+    p.add_argument("--rr-depth", type=int, default=3)
+    p.add_argument("--terminate-black", action="store_true",
+                   help="depth-exhausted rays return black instead of "
+                        "sky * attenuation")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu runs the plain twins (tests only)")
     p.add_argument("-o", "--output", default="debug.png")
@@ -72,6 +88,12 @@ def scene_and_config(args, device):
             cfg = cfg.replace(accel=args.accel)
         if args.ray_chunk:
             cfg = cfg.replace(ray_chunk=args.ray_chunk)
+        if args.rr:
+            cfg = cfg.replace(rr=True, rr_depth=args.rr_depth)
+        if args.sampler != "random":
+            cfg = cfg.replace(sampler=args.sampler)
+        if args.terminate_black:
+            cfg = cfg.replace(terminate_black=True)
         return scene, cam, cfg
     scene, cam = get_world(args.scene, device=device)
     # the Cornell box is lit by its area light alone
@@ -80,7 +102,10 @@ def scene_and_config(args, device):
                        max_depth=args.max_depth, accel=args.accel or "auto",
                        seed=args.seed, ray_chunk=args.ray_chunk or 57600,
                        sky=not (args.no_sky or cornell),
-                       nee=args.nee or cornell, scene=args.scene)
+                       nee=args.nee or cornell,
+                       terminate_black=args.terminate_black, rr=args.rr,
+                       rr_depth=args.rr_depth, sampler=args.sampler,
+                       scene=args.scene)
     return scene, cam, cfg
 
 

@@ -25,9 +25,10 @@
 // Tensor cores (wgmma), TMA copies of the column blocks and a persistent
 // grid are left to later work.
 //
-// Arithmetic: the pair scalars and the sphere / triangle epilogue come from
-// sweep_common.cuh, so they round exactly like the separate PyTorch ops of
-// the plain twin (`march_reference` in ops/cluster_sweep.py).
+// Arithmetic: the pair scalars, the sphere / triangle epilogue and the visit
+// of one cluster come from sweep_common.cuh (shared with window_sweep.cu),
+// so they round exactly like the separate PyTorch ops of the plain twin
+// (`march_reference` in ops/cluster_sweep.py).
 
 #include <cuda_runtime.h>
 
@@ -72,8 +73,7 @@ __global__ void __launch_bounds__(1024) cluster_march_kernel(
 
   const int chunk = blockIdx.x;
   const int tid = threadIdx.x;
-  const int n = blockDim.x;
-  const long long r = static_cast<long long>(chunk) * n + tid;
+  const long long r = static_cast<long long>(chunk) * blockDim.x + tid;
 
   float p[kFeat];
 #pragma unroll
@@ -81,47 +81,25 @@ __global__ void __launch_bounds__(1024) cluster_march_kernel(
   const float ai = a[r];
   const float inv_a = 1.0f / ai;
   const float g = gate[r];
-  float t_acc = kBig;
-  int b_acc = -1;
+  pt_sweep::Best best = {kBig, -1};
 
   const int* ids_c = ids + static_cast<long long>(chunk) * n_slots;
   const float* ents_c = ents + static_cast<long long>(chunk) * n_slots;
   int j = 0;
   for (; j < n_slots; ++j) {
-    const float m = block_max(fminf(t_acc, g), s_red);
+    const float m = block_max(fminf(best.t, g), s_red);
     if (!(m > ents_c[j])) break;  // uniform across the block
     const int c = ids_c[j];
-    const float* src = cols + static_cast<long long>(c) * width;
-    for (int i = tid; i < width; i += n) s_cols[i] = src[i];
-    for (int i = tid; i < K; i += n) {
-      s_sph[i] = is_sphere[c * K + i];
-      s_valid[i] = valid_row[c * K + i];
-    }
+    pt_sweep::stage_cluster(cols, is_sphere, valid_row, c, K, s_cols, s_sph,
+                            s_valid);
     __syncthreads();
-    const int ct = ctype[c];  // 0 mixed, 1 all-sphere, 2 all-triangle
-    for (int k = 0; k < K; ++k) {
-      if (s_valid[k] == 0) continue;
-      float S[kOuts];
-#pragma unroll
-      for (int o = 0; o < kOuts; ++o) {
-        // feature f of output o at s_cols[f * kOuts * K + o * K + k]
-        S[o] = pt_sweep::pair_scalar(p, s_cols + o * K + k, kOuts * K);
-      }
-      const bool sph = (ct == 1) || (ct == 0 && s_sph[k] != 0);
-      float t;
-      const bool hit =
-          sph ? pt_sweep::sphere_hit(S[0], S[1], ai, inv_a, t_min, t_max, &t)
-              : pt_sweep::triangle_hit(S[0], S[1], S[2], S[3], t_min, t_max,
-                                       &t);
-      if (hit && t < t_acc) {
-        t_acc = t;
-        b_acc = c * K + k;
-      }
-    }
+    // ctype[c]: 0 mixed, 1 all-sphere, 2 all-triangle
+    best = pt_sweep::sweep_cluster(p, ai, inv_a, s_cols, s_sph, s_valid,
+                                   ctype[c], c, K, t_min, t_max, best);
     __syncthreads();  // all reads of this slot's block precede the next load
   }
-  t_out[r] = t_acc;
-  best_out[r] = b_acc;
+  t_out[r] = best.t;
+  best_out[r] = best.idx;
   if (tid == 0) slots_out[chunk] = j;
 }
 

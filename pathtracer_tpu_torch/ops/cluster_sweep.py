@@ -1,7 +1,7 @@
-"""Cluster-culled closest-hit: ray binning by sort + the march kernel
-(``ops/cluster_sweep.py::cluster_march``).
+"""Cluster-culled closest-hit (``ops/cluster_sweep.py``): two strategies
+over the same cluster tables.
 
-Per query:
+"march" (``cluster_march``, the default), per query:
 
 1. cull: slab-test every ray against the regular cluster AABBs, giving
    conservative entry distances (C_reg, R);
@@ -22,9 +22,17 @@ Exact: each chunk stops only once every lane's best hit precedes all its
 unvisited clusters. Ties between different primitives at bit-equal t may
 pick another winner than the dense sweep's lowest-index rule.
 
-The march has two implementations: the CUDA kernel for tensors on a GPU,
-and ``march_reference``, its plain PyTorch twin, for tensors on the CPU.
-``march`` picks by device only; on a GPU it launches the kernel or raises.
+"rounds" (``cluster_closest``), the reference's cross-check strategy:
+a residual pass over the residual tile, then up to ``max_rounds`` rounds
+of (sort rays by their nearest unprocessed beatable cluster, sweep a
+window of W consecutive clusters per chunk, re-cull), then an exact
+full-width fallback for the rays still unresolved. Every sweep is one
+launch of the window kernel (``csrc/window_sweep.cu``).
+
+Each kernel has two implementations: the CUDA kernel for tensors on a GPU,
+and a plain PyTorch twin (``march_reference``, ``window_reference``) for
+tensors on the CPU. ``march`` and ``window_sweep`` pick by device only; on
+a GPU they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -41,15 +49,22 @@ from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, FEAT, OUTS,
                                                    ray_features)
 
 DEF_RAY_TILE = 128
+DEF_WINDOW = 4       # clusters per round's window
+DEF_MAX_ROUNDS = 6
+STRATEGIES = ("march", "rounds")
+# round key of a resolved lane: sorts after every cluster index
+_RESOLVED_KEY = 0x3FFFFFFF
 
 # Conservative shrink of cluster entry distances: slab-test and epilogue
 # arithmetic differ at ulp level, so a hit exactly on a cluster boundary
 # could otherwise be ordered wrongly.
 _ENTRY_MARGIN = 1e-4
 
-# Launches of the CUDA march kernel in this process (the wrapper adds one per
-# launch and nowhere else); callers reset it to 0 to count a run.
+# Launches of the CUDA march and window kernels in this process (each wrapper
+# adds one per launch and nowhere else); callers reset them to 0 to count a
+# run.
 MARCH_LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 
 def _cull_T(o, d, active, cmin, cmax, t_min):
@@ -73,6 +88,12 @@ def _cull_T(o, d, active, cmin, cmax, t_min):
     hit = ~(tf < tn) & active[None, :]
     entry = tn - (_ENTRY_MARGIN * torch.abs(tn) + 1e-6)
     return torch.where(hit, entry, BIG)
+
+
+def _cull(o, d, active, cmin, cmax, t_min):
+    """Per-(ray, cluster) entry distances, (R, C_reg): the transpose of
+    :func:`_cull_T`, whose entries are the same operations per element."""
+    return _cull_T(o, d, active, cmin, cmax, t_min).T
 
 
 def march_reference(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
@@ -322,29 +343,295 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
     return torch.where(found, best, 0), t_best, found
 
 
-def make_cluster_closest_hit(ct: ClusterTables, t_min: float):
+def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
+                     K: int, W: int, t_min: float, ray_tile: int):
+    """Plain PyTorch twin of the CUDA window kernel: same inputs, same
+    (t_best (R,) f32, best (R,) int32), ``best`` -1 where nothing is hit.
+
+    Chunk i of ``ray_tile`` rays sweeps clusters starts[i] .. starts[i] +
+    W - 1, or gives (BIG, -1) where skips[i] is set. Loops over the window
+    position j, vectorised over the chunks that are not skipped: the
+    left-to-right contraction, the epilogue with each primitive typed by its
+    own is_sphere row, hits in (t_min, BIG), the cluster's first minimum,
+    and a strict-``<`` merge across clusters in ascending order. Raises
+    ValueError where a swept chunk's window leaves the C_tot clusters."""
+    n_chunks = starts.shape[0]
+    dev = phi.device
+    C_tot = cols.shape[0]
+    if bool(((skips == 0) & ((starts < 0) | (starts > C_tot - W))).any()):
+        raise ValueError(f"a window [start, start + {W}) of a swept chunk "
+                         f"leaves the {C_tot} clusters")
+    P = phi.view(n_chunks, ray_tile, FEAT)
+    A = a.view(n_chunks, ray_tile)
+    t_acc = torch.full((n_chunks, ray_tile), BIG, dtype=torch.float32,
+                       device=dev)
+    b_acc = torch.full((n_chunks, ray_tile), -1, dtype=torch.int32,
+                       device=dev)
+    live = torch.nonzero(skips == 0).squeeze(1)
+    if live.numel() > 0:
+        P, A = P[live], A[live][:, :, None]
+        start = starts[live].long()
+        t_live, b_live = t_acc[live], b_acc[live]
+        for j in range(W):
+            c = start + j
+            S = contract(P, cols[c])                     # (L, T, OUTS*K)
+            t_eff = _epilogue(S[..., 0:K], S[..., K:2 * K],
+                              S[..., 2 * K:3 * K], S[..., 3 * K:4 * K], A,
+                              is_sphere[c][:, None, :] != 0,
+                              valid_row[c][:, None, :] != 0, t_min, BIG)
+            local_j = torch.argmin(t_eff, dim=2)   # first minimum
+            local_t = torch.amin(t_eff, dim=2)
+            better = local_t < t_live
+            glob = (c[:, None] * K + local_j).to(torch.int32)
+            t_live = torch.where(better, local_t, t_live)
+            b_live = torch.where(better, glob, b_live)
+        t_acc[live] = t_live
+        b_acc[live] = b_live
+    return t_acc.reshape(-1), b_acc.reshape(-1)
+
+
+def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, K, W,
+                 t_min, ray_tile):
+    global WINDOW_LAUNCHES
+    n_chunks = starts.shape[0]
+    R = n_chunks * ray_tile
+    C_tot = cols.shape[0]
+    if ray_tile % 32 != 0 or not 0 < ray_tile <= 1024:
+        raise ValueError("ray_tile must be a multiple of 32 up to 1024")
+    if W < 1:
+        raise ValueError(f"window width W must be positive, got {W}")
+    for name, x, dtype, shape in (
+            ("phi", phi, torch.float32, (R, FEAT)),
+            ("a", a, torch.float32, (R,)),
+            ("starts", starts, torch.int32, (n_chunks,)),
+            ("skips", skips, torch.int32, (n_chunks,)),
+            ("cols", cols, torch.float32, (C_tot, FEAT, OUTS * K)),
+            ("is_sphere", is_sphere, torch.int32, (C_tot, K)),
+            ("valid_row", valid_row, torch.int32, (C_tot, K))):
+        _cuda_build.check_arg(x, name, dtype, shape, phi.device)
+    lib = _cuda_build.load("window_sweep")
+    fn = lib.window_sweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_void_p] * 3)
+    t_out = torch.empty(R, dtype=torch.float32, device=phi.device)
+    best = torch.empty(R, dtype=torch.int32, device=phi.device)
+    stream = torch.cuda.current_stream(phi.device).cuda_stream
+    err = fn(phi.data_ptr(), a.data_ptr(), starts.data_ptr(),
+             skips.data_ptr(), n_chunks, ray_tile, W, C_tot, cols.data_ptr(),
+             is_sphere.data_ptr(), valid_row.data_ptr(), K, t_min,
+             t_out.data_ptr(), best.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"window_sweep kernel launch failed: CUDA error "
+                           f"{err}")
+    WINDOW_LAUNCHES += 1
+    return t_out, best
+
+
+def window_sweep(phi, a, starts, skips, cols, is_sphere, valid_row, K: int,
+                 W: int, t_min: float, ray_tile: int):
+    """The window sweep: the CUDA kernel for CUDA tensors, the plain twin
+    for CPU tensors. phi (R, 12), a = |d|^2 (R,), starts / skips
+    (R / ray_tile,) int32, cols (C_tot, 12, 4K), is_sphere / valid_row
+    (C_tot, K) int32. Returns (t_best (R,) f32, best (R,) int32), ``best``
+    the winner's c * K + k, -1 where nothing is hit.
+
+    Every chunk that is not skipped needs 0 <= starts[i] and starts[i] + W
+    <= C_tot. The twin raises ValueError otherwise; the kernel fails a
+    device-side assert, so PyTorch raises at the stream's next sync (the
+    check costs no host sync per launch)."""
+    if phi.device.type == "cuda":
+        return _window_cuda(phi, a, starts, skips, cols, is_sphere,
+                            valid_row, K, W, t_min, ray_tile)
+    if phi.device.type == "cpu":
+        return window_reference(phi, a, starts, skips, cols, is_sphere,
+                                valid_row, K, W, t_min, ray_tile)
+    raise ValueError(f"no window sweep for device {phi.device}")
+
+
+def _key_and_resolved(entry, processed, t_best):
+    """Per ray, the nearest unprocessed cluster whose entry can still beat
+    its best hit (``argmin``'s first minimum), and whether none is left;
+    resolved rays get ``_RESOLVED_KEY``."""
+    cand = torch.where(processed | (entry >= t_best[:, None]), BIG, entry)
+    m = torch.amin(cand, dim=1)
+    key = torch.argmin(cand, dim=1)
+    resolved = m >= BIG * 0.5
+    return torch.where(resolved, _RESOLVED_KEY, key), resolved
+
+
+def cluster_closest(ct: ClusterTables, o, d, t_min,
+                    ray_tile: int = DEF_RAY_TILE, window: int = DEF_WINDOW,
+                    max_rounds: int = DEF_MAX_ROUNDS,
+                    sort_rays: bool = True):
+    """The "rounds" culled closest-hit: (prim_idx, t, valid), each (R,).
+
+    Indices address ``ct.scene``. Rays with d == 0 resolve as misses. Needs
+    K % 128 == 0, as the reference does. Phases, in the reference's order:
+
+    1. the residual tile, every ray once, in caller order (W = 1 from
+       cluster C_reg; chunks whose rays are all dead are skipped);
+    2. cull, then up to ``max_rounds`` rounds: a stable sort of the rays by
+       round key (unless ``sort_rays`` is False), one window of W =
+       min(window, C_reg) clusters per chunk starting at its smallest key,
+       a strict-``<`` merge, the window marked processed, a re-cull and new
+       keys;
+    3. for rays still unresolved, one exact sweep of every regular cluster
+       (W = C_reg from 0), unresolved rays first;
+    4. back to caller order by ray id.
+
+    The reference runs rounds in a ``lax.while_loop`` and the fallback
+    under ``lax.cond``; here they are a Python loop and an ``if``, each
+    with one host check of whether any ray is unresolved. The reference
+    keeps the processed set as uint32 bitsets so it can ride ``lax.sort``;
+    here it is an (R, C_reg) bool tensor permuted with the rays."""
+    if ct.K % 128 != 0:
+        raise ValueError("rounds strategy needs K % 128 == 0 (lane slices "
+                         "at K granularity); small K is march+split only")
+    r = o.shape[0]
+    C_reg, K = ct.C_reg, ct.K
+    C_tot = ct.cols.shape[0]
+    W = min(window, C_reg)
+    dev = o.device
+    r_pad = -(-r // ray_tile) * ray_tile
+    n_chunks = r_pad // ray_tile
+    if r_pad != r:
+        o = torch.cat([o, o.new_zeros((r_pad - r, 3))])
+        d = torch.cat([d, d.new_zeros((r_pad - r, 3))])
+    active = torch.any(d != 0.0, dim=1)
+    active0 = active   # caller order
+    t_min = float(t_min)
+    tables = (ct.cols, ct.is_sphere.view(C_tot, K),
+              ct.valid_row.view(C_tot, K))
+
+    def window_pass(o_, d_, starts, skips, W_):
+        phi = ray_features(o_, d_)
+        a = vec.dot(d_, d_)
+        # dead rays: a == 0 would NaN the sphere roots; a = 1 with d = 0
+        # rejects them cleanly
+        a = torch.where(a == 0.0, 1.0, a)
+        return window_sweep(phi.contiguous(), a.contiguous(),
+                            starts.to(torch.int32).contiguous(),
+                            skips.to(torch.int32).contiguous(), *tables, K,
+                            W_, t_min, ray_tile)
+
+    # phase 1: the residual tile, every ray exactly once
+    res_starts = torch.full((n_chunks,), C_reg, dtype=torch.int32,
+                            device=dev)
+    chunk_dead = torch.all(~active.view(n_chunks, ray_tile), dim=1)
+    t_best, best = window_pass(o, d, res_starts, chunk_dead, 1)
+
+    # phase 2: cull, then rounds
+    entry = _cull(o, d, active, ct.cmin, ct.cmax, t_min)
+    processed = torch.zeros((r_pad, C_reg), dtype=torch.bool, device=dev)
+    key, resolved = _key_and_resolved(entry, processed, t_best)
+    rid = torch.arange(r_pad, device=dev)
+    clusters = torch.arange(C_reg, device=dev)
+    rounds = 0
+    while rounds < max_rounds and bool((~resolved).any()):
+        if sort_rays:
+            order = torch.sort(key, stable=True).indices
+            key, o, d = key[order], o[order], d[order]
+            t_best, best, rid = t_best[order], best[order], rid[order]
+            processed = processed[order]
+        chunk_min = torch.amin(key.view(n_chunks, ray_tile), dim=1)
+        skip = chunk_min >= _RESOLVED_KEY
+        starts = torch.clamp(chunk_min, 0, max(C_reg - W, 0))
+        t_w, b_w = window_pass(o, d, starts, skip, W)
+        better = t_w < t_best
+        t_best = torch.where(better, t_w, t_best)
+        best = torch.where(better, b_w, best)
+
+        start_r = starts.repeat_interleave(ray_tile)[:, None]
+        upd = (~skip).repeat_interleave(ray_tile)[:, None]
+        processed = processed | (upd & (clusters[None, :] >= start_r)
+                                 & (clusters[None, :] < start_r + W))
+        entry = _cull(o, d, torch.any(d != 0.0, dim=1), ct.cmin, ct.cmax,
+                      t_min)
+        key, resolved = _key_and_resolved(entry, processed, t_best)
+        rounds += 1
+
+    # phase 3: the exact fallback for stragglers
+    if bool((~resolved).any()):
+        skey = resolved.to(torch.int32)
+        if sort_rays:
+            # compact the unresolved rays into the leading chunks
+            order = torch.sort(skey, stable=True).indices
+            skey, o, d = skey[order], o[order], d[order]
+            t_best, best, rid = t_best[order], best[order], rid[order]
+        skip = torch.all(skey.view(n_chunks, ray_tile) == 1, dim=1)
+        t_w, b_w = window_pass(o, d, torch.zeros_like(skip, dtype=torch.int32),
+                               skip, C_reg)
+        better = t_w < t_best
+        t_best = torch.where(better, t_w, t_best)
+        best = torch.where(better, b_w, best)
+
+    # back to caller order (unsorted mode never permutes)
+    if sort_rays:
+        t_best = torch.empty_like(t_best).index_put_((rid,), t_best)
+        best = torch.empty_like(best).index_put_((rid,), best)
+    t_best = t_best[:r]
+    best = best[:r].to(torch.int64)
+    # dead lanes can register pseudo-hits on enclosing residual spheres
+    # (a is forced to 1); they are misses
+    found = (best >= 0) & active0[:r]
+    return torch.where(found, best, 0), t_best, found
+
+
+def make_cluster_closest_hit(ct: ClusterTables, t_min: float,
+                             ray_tile: int = DEF_RAY_TILE,
+                             window: int = DEF_WINDOW,
+                             max_rounds: int = DEF_MAX_ROUNDS,
+                             sort_rays: bool = True,
+                             strategy: str = "march"):
     """Closest-hit factory over prebuilt cluster tables. ``closest(o, d)``
-    returns (idx, t, valid) in caller order; ``closest.query_sorted(o, d,
-    active, extras)`` is the sorted-wavefront protocol (see
-    :func:`cluster_march`); ``closest.query_shadow(o, d, active)`` is the
-    NEE occlusion query. Indices refer to ``ct.scene``."""
-    def closest(o, d):
-        return cluster_march(ct, o, d, float(t_min))
+    returns (idx, t, valid) in caller order; ``closest.query_shadow(o, d,
+    active)`` is the NEE occlusion query. Indices refer to ``ct.scene``.
 
-    def query_sorted(o, d, active, extras):
-        return cluster_march(ct, o, d, float(t_min), active=active,
-                             extras=extras)
+    ``strategy`` "march" (:func:`cluster_march`) also gives
+    ``closest.query_sorted(o, d, active, extras)``, the sorted-wavefront
+    protocol, when ``sort_rays``. "rounds" (:func:`cluster_closest`, where
+    ``window`` and ``max_rounds`` apply) has no sorted protocol, so the
+    integrator queries it in caller order; it needs K % 128 == 0."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown cluster strategy {strategy!r}; "
+                         f"available: {', '.join(STRATEGIES)}")
+    if strategy == "rounds" and ct.K % 128 != 0:
+        raise ValueError(f"rounds strategy needs K % 128 == 0, got K = "
+                         f"{ct.K}")
+    closest_kw = dict(ray_tile=ray_tile, sort_rays=sort_rays)
 
-    def query_shadow(o, d, active=None):
-        # the segment runs to the light point at t == 1: t_max = 1 rejects
-        # geometry beyond the light and stops the march there. Its origin
-        # is already offset off the surface (render/lights), so t_min is
-        # the near-zero K_SHADOW_T_MIN, not the bounce t_min
-        return cluster_march(ct, o, d, K_SHADOW_T_MIN, active=active,
-                             t_max=1.0, sort_rays=False)
+    if strategy == "rounds":
+        closest_kw.update(window=window, max_rounds=max_rounds)
+
+        def closest(o, d):
+            return cluster_closest(ct, o, d, float(t_min), **closest_kw)
+
+        def query_shadow(o, d, active=None):
+            # the reference's rounds shadow query: near-zero t_min, no t_max
+            # (the caller zeroes inactive segments, which resolve as misses)
+            return cluster_closest(ct, o, d, K_SHADOW_T_MIN, **closest_kw)
+    else:
+        def closest(o, d):
+            return cluster_march(ct, o, d, float(t_min), **closest_kw)
+
+        def query_shadow(o, d, active=None):
+            # the segment runs to the light point at t == 1: t_max = 1
+            # rejects geometry beyond the light and stops the march there.
+            # Its origin is already offset off the surface (render/lights),
+            # so t_min is the near-zero K_SHADOW_T_MIN, not the bounce t_min
+            return cluster_march(ct, o, d, K_SHADOW_T_MIN, ray_tile=ray_tile,
+                                 active=active, t_max=1.0, sort_rays=False)
+
+        if sort_rays:
+            def query_sorted(o, d, active, extras):
+                return cluster_march(ct, o, d, float(t_min),
+                                     ray_tile=ray_tile, active=active,
+                                     extras=extras)
+            closest.query_sorted = query_sorted
+            closest.ray_tile = ray_tile
 
     closest.handles_dead = True
-    closest.query_sorted = query_sorted
     closest.query_shadow = query_shadow
-    closest.ray_tile = DEF_RAY_TILE
     return closest

@@ -21,6 +21,11 @@ also samples one light point and casts a shadow ray (``render/lights``);
 light samples and BSDF-sampled emissive hits are weighted by the one-sample
 balance heuristic, while camera rays and paths after a delta lobe keep the
 full emissive weight.
+
+With ``rr`` (Russian roulette), from bounce ``rr_depth`` on a continuing
+path survives with probability K_RR_CONTINUE and its attenuation is scaled
+by K_RR_INV_CONTINUE; the kill applies to the continuation only, so the
+bounce's own emission and light sample keep their full weight.
 """
 from __future__ import annotations
 
@@ -37,6 +42,10 @@ SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
 
 _RID_BITS = 29   # ray ids share one int32 payload with two flags
+
+# Russian roulette: continue probability and survivor scale
+K_RR_CONTINUE = 0.8
+K_RR_INV_CONTINUE = 1.25
 
 
 def sky_color(direction):
@@ -59,7 +68,8 @@ def make_brute_closest_hit(scene: Scene, t_min: float):
 
 def trace(scene: Scene, origin, direction, key, max_depth: int,
           closest_hit_fn, t_min: float = 1e-3, sky: bool = True,
-          terminate_black: bool = False, nee: bool = False):
+          terminate_black: bool = False, nee: bool = False, rr: bool = False,
+          rr_depth: int = 3):
     """Trace a wavefront of rays; returns (radiance (N, 3), (closest-hit
     queries, shadow queries, march pair tests)) executed.
 
@@ -67,8 +77,8 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     (prim_idx, t, valid)`` over ``scene``'s rows, optionally with
     ``query_sorted`` and ``ray_tile`` (the cluster march) and
     ``handles_dead``; with ``nee`` it needs ``query_shadow`` (the shadow
-    query, as every route of ``render/renderer`` has). Russian roulette is not
-    ported (the renderer rejects it)."""
+    query, as every route of ``render/renderer`` has). ``rr`` turns on
+    Russian roulette from bounce ``rr_depth`` on (module docstring)."""
     n_rays = origin.shape[0]
     dev = origin.device
     use_nee = nee and scene.num_lights > 0
@@ -140,6 +150,14 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
         newly_absorbed = active & ~sc.is_emissive & ~sc.ok
         absorbed = absorbed | newly_absorbed | hit_emitter
         step = active & sc.ok & ~sc.is_emissive
+        if rr and depth >= rr_depth:
+            # decided for the continuation; the NEE bookkeeping below still
+            # sees the bounce's own step
+            u_rr = prng.uniform_by_ray(prng.fold_in(bkey, 2), rid, 1)[:, 0]
+            killed = step & (u_rr >= K_RR_CONTINUE)
+            rr_scale = torch.where(step & ~killed, K_RR_INV_CONTINUE, 1.0)
+        else:
+            killed = rr_scale = None
 
         if use_nee:
             u_nee = prng.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
@@ -167,9 +185,14 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                                 new_cos * vec.PI_INV)
             prev_pdf = torch.where(step & take_direct, p_new, prev_pdf)
 
+        bounce_atten = atten * sc.attenuation
+        if killed is not None:
+            step = step & ~killed
+            absorbed = absorbed | killed
+            bounce_atten = bounce_atten * rr_scale[:, None]
         o = torch.where(step[:, None], rec.p, o)
         d = torch.where(step[:, None], sc.direction, d)
-        atten = torch.where(step[:, None], atten * sc.attenuation, atten)
+        atten = torch.where(step[:, None], bounce_atten, atten)
         # a miss leaves the loop and keeps its last direction for the sky
         alive = alive & hit_valid & step
         depth += 1

@@ -12,16 +12,19 @@ sample)``, ``fold_in(·, first pixel of the chunk)``, ``split(·, 4)`` into
 depth)`` keyed again by ray id (``core/random``).
 
 Closest-hit routes (``cfg.accel``, "auto" by scene size): "cluster" (the
-march kernel), "pallas" (the dense sweep kernel), "tensor" (dense float32
-matrix products, the "auto" choice below K_AUTO_ACCEL_PRIMS prims) and
-"brute". Every route carries a shadow query for NEE. ``stratify`` jitters
-sample s inside stratum (s mod m^2) of an m x m sub-pixel grid, m the
-largest integer with m^2 dividing ``cfg.spp``. Russian roulette, the Sobol
-sampler, the BVH route and the differentiable render raise
+march kernel, or with ``PT_CLUSTER_STRATEGY=rounds`` the window kernel),
+"pallas" (the dense sweep kernel), "tensor" (dense float32 matrix products,
+the "auto" choice below K_AUTO_ACCEL_PRIMS prims) and "brute". Every route
+carries a shadow query for NEE. ``stratify`` jitters sample s inside
+stratum (s mod m^2) of an m x m sub-pixel grid, m the largest integer with
+m^2 dividing ``cfg.spp``; ``sampler="sobol"`` takes the pixel jitter from
+a per-pixel Owen-scrambled Sobol point instead (and overrides
+``stratify``). The BVH route and the differentiable render raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -30,6 +33,7 @@ from pathtracer_tpu_torch import config as config_mod
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.core import camera as camera_mod
 from pathtracer_tpu_torch.core import random as prng
+from pathtracer_tpu_torch.core.sampling import sobol_owen_2d
 from pathtracer_tpu_torch.ops.cluster_sweep import make_cluster_closest_hit
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
 from pathtracer_tpu_torch.ops.pallas_sweep import make_pallas_closest_hit
@@ -37,9 +41,9 @@ from pathtracer_tpu_torch.ops.tensor_sweep import make_tensor_closest_hit
 from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.scene.scene import Scene
 
-# Cluster size. The reference picks 64 unless its tables would overflow TPU
-# VMEM; the port has no such limit. Re-choosing K for the H100 is ROADMAP
-# Queue 1, item 9.
+# Cluster size (``PT_CLUSTER_K`` overrides). The reference picks 64 unless
+# its tables would overflow TPU VMEM; the port has no such limit.
+# Re-choosing K for the H100 is ROADMAP Queue 1, item 9.
 CLUSTER_K = 64
 
 
@@ -54,10 +58,27 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.accel == "bvh":
         raise NotImplementedError(
             "accel 'bvh' is not ported yet (ROADMAP Queue 1, item 12)")
-    if cfg.rr or cfg.sampler != "random":
-        raise NotImplementedError(
-            "Russian roulette and the Sobol sampler are not ported yet "
-            "(ROADMAP Queue 1, item 8)")
+
+
+def cluster_options():
+    """(K, factory keywords) of the cluster route from the reference's
+    environment knobs: ``PT_CLUSTER_K`` (default :data:`CLUSTER_K`),
+    ``PT_CLUSTER_STRATEGY`` ("march" or "rounds"), ``PT_CLUSTER_WINDOW``,
+    ``PT_CLUSTER_MAX_ROUNDS`` (the rounds strategy's) and
+    ``PT_CLUSTER_SORT=0`` (no binning sort). Read when a scene's route is
+    built, so a :class:`Renderer` keeps the route it built first."""
+    K = int(os.environ.get("PT_CLUSTER_K") or CLUSTER_K)
+    kw = {}
+    for name in ("window", "max_rounds"):
+        value = os.environ.get(f"PT_CLUSTER_{name.upper()}")
+        if value:
+            kw[name] = int(value)
+    if os.environ.get("PT_CLUSTER_SORT", "1") == "0":
+        kw["sort_rays"] = False
+    strategy = os.environ.get("PT_CLUSTER_STRATEGY")
+    if strategy:
+        kw["strategy"] = strategy
+    return K, kw
 
 
 def _with_shadow(factory, scene: Scene, t_min: float):
@@ -78,8 +99,9 @@ def make_query(scene: Scene, cfg: RenderConfig) -> Query:
     check_supported(cfg)
     accel = config_mod.resolve_accel(cfg.accel, scene.num_prims)
     if accel == "cluster":
-        ct = build_cluster_tables(scene, K=CLUSTER_K)
-        return Query(make_cluster_closest_hit(ct, cfg.t_min), ct.scene)
+        K, kw = cluster_options()
+        ct = build_cluster_tables(scene, K=K)
+        return Query(make_cluster_closest_hit(ct, cfg.t_min, **kw), ct.scene)
     factory = {"tensor": make_tensor_closest_hit,
                "pallas": make_pallas_closest_hit,
                "brute": integrator.make_brute_closest_hit}[accel]
@@ -133,6 +155,7 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
     dev = rows.device
     m_strat = _stratum_grid(cfg.spp) if cfg.stratify else 1
     inv_m = 1.0 / m_strat
+    use_sobol = cfg.sampler == "sobol"
 
     acc = torch.zeros((n_padded, 3), dtype=torch.float32, device=dev)
     n_queries = n_shadow = n_pairs = 0.0
@@ -145,10 +168,16 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
             row, col = rows[sl], cols[sl]
             ckey = prng.fold_in(skey, c * chunk)
             pkey, tkey, lkey1, lkey2 = prng.split(ckey, 4)
-            xi = prng.uniform(pkey, (2, chunk), dev)
-            if m_strat > 1:
-                xi = torch.stack([(sx + xi[0]) * inv_m,
-                                  (sy + xi[1]) * inv_m])
+            if use_sobol:
+                # sample s of each lane's own pixel (float32 arithmetic,
+                # exact below 2^24 pixels, as in the reference)
+                pix_id = (row * cfg.width + col).to(torch.int64)
+                xi = torch.stack(sobol_owen_2d(s, pix_id, cfg.seed))
+            else:
+                xi = prng.uniform(pkey, (2, chunk), dev)
+                if m_strat > 1:
+                    xi = torch.stack([(sx + xi[0]) * inv_m,
+                                      (sy + xi[1]) * inv_m])
             u = (col + xi[0]) * w_inv
             v = (row + xi[1]) * h_inv
             u_disk = prng.uniform(lkey1, (2, chunk), dev)
@@ -159,7 +188,8 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
             radiance, (nq, nsh, npairs) = integrator.trace(
                 query.scene, o, d, tkey, cfg.max_depth, query.closest,
                 t_min=cfg.t_min, sky=cfg.sky,
-                terminate_black=cfg.terminate_black, nee=cfg.nee)
+                terminate_black=cfg.terminate_black, nee=cfg.nee, rr=cfg.rr,
+                rr_depth=cfg.rr_depth)
             acc[sl] += radiance
             n_queries += nq
             n_shadow += nsh

@@ -7,8 +7,14 @@ installed; the repository's conftest imports jax, hence on a GPU machine:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: those of tests/test_torch_march.py (kernel and twin are built
-to round alike, so they are expected to agree to the bit).
+to round alike, so they are expected to agree to the bit); the window
+kernel, which has no stop test and no tie between two implementations of
+the merge, is held to the bit.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +23,10 @@ from pathtracer_tpu_torch.config import K_SHADOW_T_MIN, RenderConfig
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core.camera import get_rays
 from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
-from pathtracer_tpu_torch.ops.tensor_sweep import pack_sweep_tables
+from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, pack_sweep_tables,
+                                                   ray_features)
 from pathtracer_tpu_torch.presets import get_preset
 from pathtracer_tpu_torch.render.renderer import make_renderer
 from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE
@@ -178,4 +186,139 @@ def test_small_cornell_render_matches_cpu(gpu):
     c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
     diff = np.abs(g - c)
     assert np.isfinite(g).all() and g.mean() > 0.05
+    assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3
+
+
+def _window_args(ct, o, d, kind):
+    """Arguments of ``window_sweep`` for one launch kind of the rounds
+    strategy over the wavefront (o, d), K=128 tables."""
+    K, C_reg = ct.K, ct.C_reg
+    C_tot = ct.cols.shape[0]
+    n_chunks = o.shape[0] // 128
+    dev = o.device
+    phi = ray_features(o, d).contiguous()
+    a = vec.dot(d, d)
+    a = torch.where(a == 0.0, 1.0, a).contiguous()
+    active = torch.any(d != 0.0, dim=1)
+    zeros = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
+    if kind == "residual":
+        dead = torch.all(~active.view(n_chunks, 128), dim=1)
+        starts, skips, W = zeros + C_reg, dead.to(torch.int32), 1
+    elif kind == "window":
+        # a first round: each chunk's nearest touched cluster
+        entry = cluster_sweep._cull(o, d, active, ct.cmin, ct.cmax, T_MIN)
+        key, _ = cluster_sweep._key_and_resolved(
+            entry, torch.zeros_like(entry, dtype=torch.bool),
+            torch.full((o.shape[0],), BIG, device=dev))
+        chunk_min = key.view(n_chunks, 128).amin(dim=1)
+        W = 4
+        starts = torch.clamp(chunk_min, 0, C_reg - W).to(torch.int32)
+        skips = (chunk_min >= cluster_sweep._RESOLVED_KEY).to(torch.int32)
+    elif kind == "fallback":
+        starts, skips, W = zeros, zeros, C_reg
+    elif kind == "last":    # the window ends at the residual tile
+        starts, skips, W = zeros + C_tot - 4, zeros, 4
+    else:   # all skipped
+        starts, skips, W = zeros + C_tot, zeros + 1, 4
+    return (phi, a, starts.contiguous(), skips.contiguous(), ct.cols,
+            ct.is_sphere.view(C_tot, K), ct.valid_row.view(C_tot, K), K, W,
+            T_MIN, 128)
+
+
+@pytest.mark.parametrize("kind", ["residual", "window", "fallback", "last",
+                                  "allskip"])
+@pytest.mark.parametrize("name,n", [("camera", 512), ("dead", 512),
+                                    ("camera", 57600)])
+def test_window_kernel_matches_twin(gpu, kind, name, n):
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=128)
+    o, d = _wavefront("camera", cam, n, gpu)
+    if name == "dead":
+        d[::5] = 0.0
+        d[:128] = 0.0        # one chunk all dead: skipped by the residual
+    args = _window_args(ct, o, d, kind)
+    before = cluster_sweep.WINDOW_LAUNCHES
+    t_k, b_k = (x.cpu().numpy() for x in cluster_sweep.window_sweep(*args))
+    torch.cuda.synchronize()
+    assert cluster_sweep.WINDOW_LAUNCHES == before + 1
+    t_r, b_r = (x.cpu().numpy() for x in cluster_sweep.window_reference(
+        *args))
+    assert cluster_sweep.WINDOW_LAUNCHES == before + 1
+    np.testing.assert_array_equal(b_k, b_r)
+    np.testing.assert_array_equal(t_k, t_r)
+    if kind == "allskip":
+        assert (b_k == -1).all() and (t_k == BIG).all()
+    elif kind in ("residual", "fallback"):
+        assert (b_k >= 0).sum() > 16
+
+
+def test_window_wrapper_rejects_bad_inputs(gpu):
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=128)
+    o, d = _wavefront("camera", cam, 512, gpu)
+    args = list(_window_args(ct, o, d, "last"))
+    for i, bad_x, err in (
+            (0, args[0].double(), TypeError),
+            (1, args[1].cpu(), ValueError),
+            (2, args[2].long(), TypeError),
+            (0, args[0].t().contiguous().t(), ValueError)):
+        bad = list(args)
+        bad[i] = bad_x
+        with pytest.raises(err):
+            cluster_sweep.window_sweep(*bad)
+    # a window that leaves the tables is fine where the chunk is skipped
+    ok = list(args)
+    ok[2] = args[2] + 1
+    ok[3] = torch.ones_like(args[3])
+    t, b = cluster_sweep.window_sweep(*ok)
+    assert (b == -1).all()
+
+
+@pytest.mark.parametrize("shift", ["1", "-C_tot"])
+def test_window_kernel_asserts_off_the_tables(gpu, shift):
+    """A swept window past the last cluster (starts + W > C_tot) or before
+    the first (starts < 0) fails the kernel's device-side assert, and
+    PyTorch raises at the next sync. The assert leaves the CUDA context
+    unusable, so each case runs in a process of its own."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = f"""
+import sys, torch
+sys.path.insert(0, {here!r})
+import test_torch_cuda as t
+dev = torch.device("cuda")
+scene, cam = t.get_world("bunny", device=dev)
+ct = t.build_cluster_tables(scene, K=128)
+C_tot = ct.cols.shape[0]
+o, d = t._wavefront("camera", cam, 512, dev)
+args = list(t._window_args(ct, o, d, "last"))
+args[2] = args[2] + {shift}
+t.cluster_sweep.window_sweep(*args)
+torch.cuda.synchronize()
+print("no error")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=os.path.dirname(here))
+    assert out.returncode != 0 and "no error" not in out.stdout
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
+def test_small_rounds_render_matches_cpu(gpu, monkeypatch):
+    """The bunny on the rounds route (K=128) with the Sobol sampler, Russian
+    roulette from bounce 1 and black termination, on the card against the
+    same render on the CPU."""
+    monkeypatch.setenv("PT_CLUSTER_STRATEGY", "rounds")
+    monkeypatch.setenv("PT_CLUSTER_K", "128")
+    cfg = RenderConfig(width=64, height=36, spp=2, max_depth=3,
+                       ray_chunk=64 * 36, accel="cluster", scene="bunny",
+                       seed=5, sampler="sobol", rr=True, rr_depth=1,
+                       terminate_black=True)
+    scene, cam = get_world("bunny", device=gpu)
+    cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
+    g = make_renderer(cfg, gpu)(scene, cam).cpu().numpy()
+    assert cluster_sweep.WINDOW_LAUNCHES > 0
+    assert cluster_sweep.MARCH_LAUNCHES == 0
+    scene_c, cam_c = get_world("bunny", device="cpu")
+    c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
+    diff = np.abs(g - c)
+    assert np.isfinite(g).all() and g.mean() > 0.2
     assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3

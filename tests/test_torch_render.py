@@ -167,12 +167,15 @@ def test_render_stats_and_determinism():
 
 def test_cli_and_no_jax_import(tmp_path):
     """Port renders in a fresh interpreter import neither jax nor the JAX
-    package (the test process itself has both loaded): the bunny, and a
-    cornell-full preset (NEE, stratify, textures, the dense sweep)."""
+    package (the test process itself has both loaded): the bunny, a
+    cornell-full preset (NEE, stratify, textures, the dense sweep), and the
+    bunny on the rounds route with the Sobol sampler, Russian roulette and
+    black termination."""
     out = tmp_path / "t.png"
     out2 = tmp_path / "c.png"
+    out3 = tmp_path / "r.png"
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "from pathtracer_tpu_torch.__main__ import main\n"
         f"rc = main(['--scene', 'bunny', '--width', '16', '--height', '8',"
         f" '--spp', '1', '--max-depth', '2', '--ray-chunk', '128',"
@@ -180,6 +183,11 @@ def test_cli_and_no_jax_import(tmp_path):
         f"rc = rc or main(['--preset', 'cornell-full', '--scale', '0.0625',"
         f" '--accel', 'pallas', '--ray-chunk', '256', '--device', 'cpu',"
         f" '-o', {str(out2)!r}])\n"
+        "os.environ.update(PT_CLUSTER_STRATEGY='rounds', PT_CLUSTER_K='128')\n"
+        f"rc = rc or main(['--scene', 'bunny', '--width', '16', '--height',"
+        f" '8', '--spp', '2', '--max-depth', '3', '--ray-chunk', '128',"
+        f" '--sampler', 'sobol', '--rr', '--rr-depth', '1',"
+        f" '--terminate-black', '--device', 'cpu', '-o', {str(out3)!r}])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pathtracer_tpu' or m.startswith('pathtracer_tpu.')]\n"
         "print('LOADED', bad)\n"
@@ -190,5 +198,5 @@ def test_cli_and_no_jax_import(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
     assert "16x16, 4 spp" in proc.stdout and "nee" in proc.stdout
-    for path in (out, out2):
+    for path in (out, out2, out3):
         assert path.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

@@ -140,10 +140,6 @@ def test_off_slice_raises():
     from pathtracer_tpu_torch.render.renderer import render_image, render_sum
     ts, tc = tworlds.get_world("test", device="cpu")
     small = dict(width=8, height=4, spp=1, max_depth=1, ray_chunk=32)
-    for kw in (dict(rr=True), dict(sampler="sobol")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            render_image(ts, tc, tconfig.RenderConfig(**small, **kw),
-                         device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         render_image(ts, tc, tconfig.RenderConfig(accel="bvh", **small),
                      device="cpu")
