@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel of the main paths from ``csrc/``, one nvcc
-   process per source, all at once; print each kernel's ptxas line;
+   process per source, all at once; print each kernel's registers and
+   spills from ptxas (fails if the march spills);
 3. kernels vs plain twins on the card, at the main paths' shapes, timed
    with CUDA events (median of 5 after a warm-up), each beside its bound:
    the cluster march on a 57,600-ray bunny camera and bounce wavefront; the
@@ -17,9 +18,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    cornell-full 65,536-ray camera wavefront and a cornell-full shadow
    wavefront (t_min = K_SHADOW_T_MIN), with the ``tensor`` route (the
    ``auto`` choice for these scenes) timed at the same shapes; the window
-   sweep of the rounds strategy (K=128 tables) on the 57,600-ray bunny
-   camera wavefront's residual pass, first round and full-width fallback,
-   which must agree with the twin to the bit;
+   sweep of the rounds strategy (K=128 tables) on every launch of one
+   rounds query of the 57,600-ray bunny camera wavefront (residual pass,
+   rounds, fallback: kind, W, live chunks, time and bound each, and their
+   sums) and on a full-width fallback over every chunk. The dense and
+   window sweeps must agree with their twins to the bit;
 4. main paths through the CLI's code path, each with every launch counter
    reset just before it and read just after: the bunny at 640x360, 8 spp,
    depth 4 (cluster march); cornell-full at 256x256, 64 spp, depth 4 with
@@ -27,8 +30,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the reference's default, 800x450, 100 spp, depth 50 (dense sweep); the
    bunny again on the rounds route (PT_CLUSTER_STRATEGY=rounds,
    PT_CLUSTER_K=128: window sweep, no march), whose image must agree with
-   the march's. Each checks finite pixels and the image mean and writes
-   out/;
+   the march's, with its window launches counted by kind; then the same
+   rounds render once more under ``torch.profiler`` for the window
+   kernel's share of the device time and the device's busy share. Each
+   checks finite pixels and the image mean and writes out/;
 5. end to end: small renders on the card against the same renders on the
    CPU (the plain twins, which the CPU tests hold against the JAX
    reference): the bunny, cornell-full through the dense sweep with NEE,
@@ -42,9 +47,11 @@ source, launches on its main path, error, times and bound; the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +77,13 @@ PEAK_F32 = 67e12
 # triangle 4), its epilogue (sphere 14, triangle 13) and the merge compare
 OPS_SPHERE_PAIR = 2 * 23 + 14 + 1
 OPS_TRI_PAIR = 4 * 23 + 13 + 1
+# ... of which a pair needs only these where its result cannot depend on
+# the rest (the dense and window sweeps skip the rest there): a sphere its
+# two pair scalars and the discriminant test (the roots only where disc >=
+# 0), a triangle det, b1 * det, b2 * det and the barycentric tests (t * det
+# and the t tests only where those pass)
+OPS_SPHERE_BASE = 2 * 23 + 4
+OPS_TRI_BASE = 3 * 23 + 9
 
 
 def fail(msg: str):
@@ -114,6 +128,126 @@ def bound(n_bytes: float, n_ops: float):
 
 def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's short name from its mangled one: the name and, for the
+    sweep-core kernels, rt / cp.async / typed from the template
+    arguments."""
+    m = re.search(r"(cluster_march|dense_sweep|window_sweep)_kernel",
+                  mangled)
+    label = m.group(1) if m else mangled
+    t = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", mangled)
+    if t:
+        label += (f"<rt={t.group(1)}, cp.async={t.group(2)}, "
+                  f"typed={t.group(3)}>")
+    return label
+
+
+def window_kinds(widths, C_reg):
+    """The kind of each window-sweep launch of a run of rounds queries,
+    from its width W: "residual" (W = 1, the first launch of a query),
+    "round k" (the k-th W-wide window since it), "fallback" (W = C_reg)."""
+    out, k = [], 0
+    for W in widths:
+        if W == 1:
+            out.append("residual")
+            k = 0
+        elif W == C_reg:
+            out.append("fallback")
+        else:
+            k += 1
+            out.append(f"round {k}")
+    return out
+
+
+def kind_order(kind: str):
+    return (0, 0) if kind == "residual" else (2, 0) if kind == "fallback" \
+        else (1, int(kind.split()[1]))
+
+
+def profile_rounds(cli, argv, card, torch):
+    """The rounds bunny once more under torch.profiler (device activity
+    only): the window kernel's share of the device time and of the wall,
+    and the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with environ(ROUNDS_ENV):
+        args = cli.build_parser().parse_args(argv + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the render's wall; the device time also holds the table build
+            _, wall, _, _ = cli.render_cli(args)
+    device_us = window_us = 0.0
+    n_window = 0
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        device_us += us
+        if "window_sweep_kernel" in e.key:
+            window_us += us
+            n_window += e.count
+    if device_us <= 0.0:
+        print("rounds bunny under torch.profiler: device time not measured "
+              "(the profiler recorded none)")
+        return
+    busy = device_us / 1e6 / wall
+    print(f"rounds bunny under torch.profiler: wall {wall:.4f} s, device "
+          f"time {device_us / 1e6:.4f} s (busy share {busy:.4f}), window "
+          f"kernel {window_us / 1e6:.4f} s over {n_window} "
+          f"launches ({window_us / device_us:.4f} of the device time, "
+          f"{window_us / 1e6 / wall:.4f} of the wall) [{card}]")
+
+
+def needed_ops(torch, phi, a, block, sph, chunk=16384):
+    """The fp32 operations that rays (phi, a) need against n primitives
+    whose (12, 4n) column block is ``block`` and whose sphere mask is
+    ``sph`` (n,): per pair the base count of its type, plus the rest of
+    the full count where the data needs it (OPS_* above)."""
+    from pathtracer_tpu_torch.ops import tensor_sweep
+    n = sph.shape[0]
+    total = 0.0
+    for r0 in range(0, phi.shape[0], chunk):
+        S = tensor_sweep.contract(phi[r0:r0 + chunk], block)
+        det, c0, p2, p3 = (S[:, k * n:(k + 1) * n] for k in range(4))
+        disc = det * det - a[r0:r0 + chunk, None] * c0
+        inv = 1.0 / torch.where(det == 0.0, 1.0, det)
+        b1, b2 = p2 * inv, p3 * inv
+        bary = ~((det == 0.0) | (b1 <= 0.0) | (b2 <= 0.0) | (b1 + b2 >= 1.0))
+        ops = torch.where(
+            sph[None, :],
+            OPS_SPHERE_BASE + (OPS_SPHERE_PAIR - OPS_SPHERE_BASE)
+            * (disc >= 0.0).double(),
+            OPS_TRI_BASE + (OPS_TRI_PAIR - OPS_TRI_BASE) * bary.double())
+        total += float(ops.sum())
+    return total
+
+
+def range_block(cols, is_sphere, lo, hi):
+    """Columns (12, 4n) and sphere mask (n,) of rows [lo, hi) of one
+    (12, 4 * width) column block."""
+    n = hi - lo
+    width = is_sphere.shape[0]
+    block = cols.view(cols.shape[0], 4, width)[:, :, lo:hi]
+    return block.reshape(cols.shape[0], 4 * n), is_sphere[lo:hi] != 0
+
+
+def window_needed_ops(torch, args):
+    """needed_ops of one window-sweep launch: each cluster against the rays
+    of the swept chunks whose window holds it, over its real rows."""
+    phi, a, starts, skips, cols, is_sphere, _, ranges, K, W = args[:10]
+    ray_tile = args[11]
+    n_chunks = starts.shape[0]
+    P = phi.view(n_chunks, ray_tile, -1)
+    A = a.view(n_chunks, ray_tile)
+    total = 0.0
+    for c, (lo, hi) in enumerate(ranges.tolist()):
+        sel = (skips == 0) & (starts <= c) & (c < starts + W)
+        if hi == lo or not bool(sel.any()):
+            continue
+        block, sph = range_block(cols[c], is_sphere[c], lo, hi)
+        total += needed_ops(torch, P[sel].reshape(-1, P.shape[2]),
+                            A[sel].reshape(-1), block, sph)
+    return total
 
 
 def real_rows(ct, scene):
@@ -225,9 +359,16 @@ def main() -> int:
     print(f"build: {', '.join(k + '.cu' for k in kernels)} in "
           f"{time.perf_counter() - t0:.3f} s (parallel nvcc)")
     for name in kernels:
-        for line in _cuda_build.BUILD_LOGS.get(name, "").splitlines():
-            if "ptxas" in line:
-                print(f"  {name}: {line.strip()}")
+        summary = _cuda_build.ptxas_summary(
+            _cuda_build.BUILD_LOGS.get(name, ""))
+        for func, regs, st, ld in summary:
+            print(f"  {name}: {kernel_label(func)}: ptxas {regs} registers, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads")
+        if name == "cluster_march" and any(st or ld for _, _, st, ld
+                                           in summary):
+            fail("the march kernel spills (ptxas above)")
+    print(f"kernel parameters: dense sweep {pallas_sweep.SWEEP_PARAMS}, "
+          f"window sweep {cluster_sweep.WINDOW_PARAMS}")
 
     def camera_wavefront(cam, n, seed):
         u = prng.uniform(prng.fold_in(prng.PRNGKey(seed), 1), (4, n), dev)
@@ -325,12 +466,17 @@ def main() -> int:
         t_r, b_r = (x.cpu().numpy() for x in twin)
         err = compare_hits(f"sweep {name}", t_k, b_k, t_r, b_r,
                            sc_.prim_type.cpu().numpy())
+        if not (np.array_equal(b_k, b_r) and np.array_equal(t_k, t_r)):
+            fail(f"sweep {name}: kernel and twin are not bit-equal")
         sweep_err = max(sweep_err, err)
         n_sph = int((sc_.prim_type == 1).sum())
         n_tri = sc_.num_prims - n_sph
         r = o.shape[0]
-        ops = r * float(OPS_SPHERE_PAIR * n_sph + OPS_TRI_PAIR * n_tri)
-        b_ms, b_by = bound(nbytes(*args[:5], *kernel), ops)
+        full_ops = r * float(OPS_SPHERE_PAIR * n_sph + OPS_TRI_PAIR * n_tri)
+        ops = sum(needed_ops(torch, args[0], args[1],
+                             *range_block(args[2][i], args[3][i], lo, hi))
+                  for i, (lo, hi) in enumerate(args[5].tolist()) if hi > lo)
+        b_ms, b_by = bound(nbytes(*args[:6], *kernel), ops)
         ms = cuda_ms(lambda: pallas_sweep.sweep(*args), torch)
         plain_ms = cuda_ms(lambda: pallas_sweep.sweep_reference(*args),
                            torch)
@@ -341,25 +487,27 @@ def main() -> int:
               f"tile {tables.tile}, t_min {t_min:g}, {int((b_k >= 0).sum())}"
               f" hits, max |dt| {err:.3g}): kernel {ms:.4f} ms, plain twin "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-              f"{ops / 1e9:.4f} GFLOP); tensor route (auto) {tensor_ms:.4f}"
-              f" ms [{card}]")
+              f"{ops / 1e9:.4f} GFLOP needed of {full_ops / 1e9:.4f} in full)"
+              f"; tensor route (auto) {tensor_ms:.4f} ms [{card}]")
 
-    # 3c. the window sweep (rounds strategy, K=128) against its twin, on the
-    # launches of one rounds query of the bunny camera wavefront
+    # 3c. the window sweep (rounds strategy, K=128) against its twin, on
+    # every launch of one rounds query of the bunny camera wavefront, and a
+    # full-width fallback over every chunk
     ct128 = build_cluster_tables(scene, K=ROUNDS_K)
     prim128 = ct128.scene.prim_type.cpu().numpy()
     with mock.patch.object(cluster_sweep, "window_sweep",
                            wraps=cluster_sweep.window_sweep) as spy:
         cluster_sweep.cluster_closest(ct128, o_cam, d_cam, T_MIN)
     captured = [call.args for call in spy.call_args_list]
-    if len(captured) < 2 or captured[0][8] != 1 or captured[1][8] != 4:
+    kinds = window_kinds([c[9] for c in captured], ct128.C_reg)
+    if len(captured) < 2 or kinds[0] != "residual" or kinds[1] != "round 1":
         fail(f"rounds query: expected a W=1 residual pass and a W=4 round, "
-             f"got widths {[c[8] for c in captured]}")
+             f"got widths {[c[9] for c in captured]}")
     res_args = captured[0]
     n_chunks = res_args[2].shape[0]
     zeros = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
-    fb_args = res_args[:2] + (zeros, zeros) + res_args[4:8] + (
-        ct128.C_reg,) + res_args[9:]
+    fb_args = res_args[:2] + (zeros, zeros) + res_args[4:9] + (
+        ct128.C_reg,) + res_args[10:]
     C_tot = ct128.cols.shape[0]
     real128 = real_rows(ct128, scene)
     sph128 = ct128.is_sphere.view(C_tot, ROUNDS_K) != 0
@@ -367,8 +515,10 @@ def main() -> int:
                    + OPS_TRI_PAIR * (real128 & ~sph128).sum(1)).double()
     window_err = 0.0
     window = {}
-    for name, args in (("residual", res_args), ("round 1", captured[1]),
-                       ("fallback", fb_args)):
+    query_ms = query_bound = 0.0
+    timed_plain = ("residual", "round 1", "fallback, all chunks")
+    for name, args in list(zip(kinds, captured)) + [
+            ("fallback, all chunks", fb_args)]:
         kernel = cluster_sweep.window_sweep(*args)
         torch.cuda.synchronize()
         twin = cluster_sweep.window_reference(*args)
@@ -380,20 +530,29 @@ def main() -> int:
         window_err = max(window_err, err)
         # operations: every swept chunk's W clusters, each real prim by its
         # type
-        starts, skips, W = args[2], args[3], args[8]
+        starts, skips, W = args[2], args[3], args[9]
         swept = skips == 0
         c = (starts[swept].long()[:, None]
              + torch.arange(W, device=dev)[None, :])
-        ops = args[10] * float(ops_cluster[c].sum())
-        b_ms, b_by = bound(nbytes(*args[:7], *kernel), ops)
+        full_ops = args[11] * float(ops_cluster[c].sum())
+        ops = window_needed_ops(torch, args)
+        b_ms, b_by = bound(nbytes(*args[:8], *kernel), ops)
         ms = cuda_ms(lambda: cluster_sweep.window_sweep(*args), torch)
-        plain_ms = cuda_ms(lambda: cluster_sweep.window_reference(*args),
-                           torch)
+        plain_ms = (cuda_ms(lambda: cluster_sweep.window_reference(*args),
+                            torch) if name in timed_plain else None)
         window[name] = (ms, plain_ms, b_ms, b_by)
+        if name != "fallback, all chunks":
+            query_ms += ms
+            query_bound += b_ms
+        plain = "" if plain_ms is None else \
+            f", plain twin {plain_ms:.4f} ms"
         print(f"window {name} (W={W}, {int(swept.sum())} of {n_chunks} "
               f"chunks swept, {int((b_k >= 0).sum())} hits, max |dt| "
-              f"{err:.3g}): kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}, {ops / 1e9:.4f} GFLOP) [{card}]")
+              f"{err:.3g}): kernel {ms:.4f} ms{plain}, bound {b_ms:.4f} ms "
+              f"({b_by}, {ops / 1e9:.4f} GFLOP needed of "
+              f"{full_ops / 1e9:.4f} in full) [{card}]")
+    print(f"window sweep, one rounds query ({len(captured)} launches): "
+          f"kernel {query_ms:.4f} ms, bound {query_bound:.4f} ms [{card}]")
 
     # 4. the main paths through the CLI's code path
     def run_cli(argv, out_png, env=None):
@@ -455,16 +614,31 @@ def main() -> int:
          "--spp", str(TRIANGLE_SPP), "--max-depth", "50", "--accel",
          "pallas", "--ray-chunk", str(TRI_RAYS)],
         os.path.join(out, "chip_smoke_triangle.png"))
-    if counts[1] <= 0:
+    triangle_launches = counts[1]
+    if triangle_launches <= 0:
         fail("the triangle path launched no dense sweep kernel")
     mean = check_image("triangle", img_np, (450, 800, 3), 0.1, 0.95)
     report("triangle", seconds, cfg, stats, counts, mean)
 
-    # the rounds strategy: a cross-check route of the march, not a target
-    img_np, seconds, cfg, stats, counts = run_cli(
-        bunny_argv, os.path.join(out, "chip_smoke_bunny_rounds.png"),
-        env=ROUNDS_ENV)
+    # the rounds strategy: a cross-check route of the march, not a target;
+    # its window launches are counted by kind (the width of each)
+    widths = []
+    window_sweep = cluster_sweep.window_sweep
+
+    def counting(*args, **kw):
+        widths.append(args[9])
+        return window_sweep(*args, **kw)
+    with mock.patch.object(cluster_sweep, "window_sweep", counting):
+        img_np, seconds, cfg, stats, counts = run_cli(
+            bunny_argv, os.path.join(out, "chip_smoke_bunny_rounds.png"),
+            env=ROUNDS_ENV)
     window_launches = counts[2]
+    split = collections.Counter(window_kinds(widths, ct128.C_reg))
+    if sum(split.values()) != window_launches:
+        fail(f"the rounds bunny's launch split {dict(split)} does not sum to "
+             f"its {window_launches} window launches")
+    print("rounds bunny window launches by kind: " + ", ".join(
+        f"{k} {split[k]}" for k in sorted(split, key=kind_order)))
     if window_launches <= 0 or counts[0] != 0:
         fail(f"the rounds bunny path launched {counts[2]} window and "
              f"{counts[0]} march kernels")
@@ -476,6 +650,7 @@ def main() -> int:
           f"1e-4, mean |diff| {diff.mean():.3g}")
     if close < 0.99 or diff.mean() > 1e-3:
         fail("the rounds bunny image disagrees with the march bunny image")
+    profile_rounds(cli, bunny_argv, card, torch)
 
     # 5. small renders: card vs CPU twins
     def card_vs_cpu(name, make, cfg, lo, env=None):
@@ -520,7 +695,7 @@ def main() -> int:
     if cluster_sweep.WINDOW_LAUNCHES <= 0:
         fail("the small rounds render launched no window kernel")
 
-    k2 = sweep["cornell-full camera"]
+    k2 = sweep["triangle camera"]
     k3 = window["round 1"]
     print(json.dumps({"kernels": [{
         "name": "cluster_march", "route": "cuda",
@@ -533,7 +708,7 @@ def main() -> int:
         "name": "dense_sweep", "route": "cuda",
         "source": "pathtracer_tpu_torch/csrc/dense_sweep.cu",
         "replaces": "pathtracer_tpu/ops/pallas_sweep.py:41",
-        "launches": sweep_launches, "max_abs_err": sweep_err,
+        "launches": triangle_launches, "max_abs_err": sweep_err,
         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2],
         "bound_by": k2[3], "library_ms": None}, {
         "name": "window_sweep", "route": "cuda",

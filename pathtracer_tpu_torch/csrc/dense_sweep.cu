@@ -5,27 +5,38 @@
 // (a Pallas kernel launched by `pallas_closest`). It computes the same
 // function, not the same blocks. The TPU kernel ran a (ray tiles x prim
 // tiles) grid whose prim axis was sequential, carrying (t, index) in its
-// output block from one prim tile to the next. Here one thread owns one ray
-// and carries that pair in registers while a loop inside the block walks
-// every primitive in ascending order: blocks of kBlock rays, and the prims
-// staged kSlice at a time into shared memory (their 12 x 4 columns and
-// masks, laid out as in the caller's tables), which every thread then reads
-// by broadcast. Per primitive a thread forms its four pair scalars, runs the
-// sphere or triangle epilogue and merges with a strict `<`, so the lowest
-// index wins a tie in t, as the TPU kernel's in-tile argmin followed by its
-// strict cross-tile merge does. Threads past the ragged end of the wavefront
-// help stage the columns but compute and write nothing, so the caller needs
-// no padding rays.
+// output block from one prim tile to the next. Here a block owns lanes x RT
+// rays (each thread RT of them, in registers) and walks the real rows
+// [lo, hi) of every prim tile (`ranges`; the tables' padding rows are
+// invalid and never hit), staging them slice at a time into shared memory
+// as 192-byte records (sweep_common.cuh). The block's threads form G groups;
+// group g sweeps every G-th staged primitive, and the groups' partial
+// results are merged at the end by the rule that gives the TPU kernel's
+// first minimum (lowest index on a tie in t). Threads past the ragged end
+// of the wavefront help stage but sweep and write nothing, so the caller
+// needs no padding rays.
 //
-// What bounds it on an H100: operations. Each (ray, prim) pair costs 48
-// multiplies, 44 adds and about 20 epilogue operations, all separate fp32
-// instructions (--fmad=false, see sweep_common.cuh). At the triangle world's
-// 90,000-ray camera wavefront (601 prims in one 640-wide tile) that is about
-// 57.6 M pairs and 6.3 GFLOP, against 123 KB of columns and 4.3 MB of ray
-// features; the kernel sits far above the card's bytes-per-FLOP line. This
-// first version keeps the arithmetic on the CUDA cores (no wgmma, no TMA):
-// the tensor cores would need the split-precision products the port has
-// dropped to stay exact.
+// What bounds it on an H100: instruction issue. A (ray, prim) pair costs at
+// most 2 (sphere) or 4 (triangle) pair scalars of 12 products and 11 sums
+// plus an epilogue: 61 or 106 separate fp32 operations, since the kernel is
+// built --fmad=false to round like its plain twin. The triangle world's
+// 90,000-ray camera wavefront against its 601 prims (DEF_PRIM_TILE 1,024,
+// which pack_sweep_tables cuts to a 640-wide tile) is 54.1 M pairs, 4.46
+// GFLOP of such operations at most, against 4.3 MB of ray features and
+// 0.2 MB of columns: far above the card's bytes-per-FLOP line. What the
+// design does about it: the first version read 48 scalar shared words per
+// pair, formed four scalars for a sphere and swept the padding rows; now a
+// thread reads 12 broadcast words per primitive and uses them for RT rays,
+// a sphere forms two scalars, a triangle three (the fourth and the t tests
+// only for the rare ray that passes the barycentric tests), and only real
+// rows are swept. At rt 2 the chosen build issues about 55 instructions per
+// sphere pair and 98 per triangle pair (its SASS), so issue, not shared
+// memory, is the limit. The tensor cores stay unused: they would need
+// split-precision products and give up the bit-equality with the twin.
+// The parameters (rt, groups, lanes, slice, cp.async) are chosen by
+// measurement, in ops/pallas_sweep.py (SWEEP_PARAMS).
+
+#include <cassert>
 
 #include <cuda_runtime.h>
 
@@ -37,97 +48,136 @@ using pt_sweep::kBig;
 using pt_sweep::kFeat;
 using pt_sweep::kOuts;
 
-constexpr int kBlock = 128;  // rays per block, one per thread
-constexpr int kSlice = 64;   // prims staged in shared memory per step
-
-__global__ void __launch_bounds__(kBlock) dense_sweep_kernel(
+template <int RT, bool kAsync, bool kTyped>
+__global__ void __launch_bounds__(pt_sweep::kMaxThreads) dense_sweep_kernel(
     const float* __restrict__ phi, const float* __restrict__ a, int n_rays,
     const float* __restrict__ cols, const int* __restrict__ is_sphere,
-    const int* __restrict__ valid_row, int n_tiles, int tile, float t_min,
-    float t_max, float* __restrict__ t_out, int* __restrict__ best_out) {
-  // s_cols[(f * kOuts + o) * kSlice + k]: feature f of output o, prim k
-  __shared__ float s_cols[kFeat * kOuts * kSlice];
-  __shared__ int s_sph[kSlice];
-  __shared__ int s_valid[kSlice];
+    const int* __restrict__ valid_row, const int* __restrict__ ranges,
+    int n_tiles, int tile, float t_min, float t_max, int lanes, int slice,
+    float* __restrict__ t_out, int* __restrict__ best_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int n_buf = kAsync ? 2 : 1;
 
   const int tid = threadIdx.x;
-  const long long r = static_cast<long long>(blockIdx.x) * kBlock + tid;
-  const bool live = r < n_rays;
+  const int g = tid / lanes;
+  const int j = tid - g * lanes;
+  const int G = blockDim.x / lanes;
+  const long long r0 = static_cast<long long>(blockIdx.x) * lanes * RT;
 
-  float p[kFeat];
+  pt_sweep::RayTile<RT> rt;
+  bool any_live = false;
 #pragma unroll
-  for (int f = 0; f < kFeat; ++f) p[f] = live ? phi[r * kFeat + f] : 0.0f;
-  const float ai = live ? a[r] : 1.0f;
-  const float inv_a = 1.0f / ai;
-  float t_acc = kBig;
-  int b_acc = -1;
+  for (int i = 0; i < RT; ++i) {
+    const long long r = r0 + j + i * lanes;
+    const bool live = r < n_rays;
+    pt_sweep::load_ray(rt, i, phi, a, r, live);
+    any_live = any_live || live;
+  }
 
-  const int row = kOuts * tile;  // floats per feature row of one tile
   for (int t = 0; t < n_tiles; ++t) {
-    const float* cols_t = cols + static_cast<long long>(t) * kFeat * row;
-    const int base = t * tile;
-    for (int k0 = 0; k0 < tile; k0 += kSlice) {
-      for (int i = tid; i < kFeat * kOuts * kSlice; i += kBlock) {
-        const int fo = i / kSlice;  // f * kOuts + o
-        s_cols[i] = cols_t[(fo / kOuts) * row + (fo % kOuts) * tile + k0 +
-                           (i % kSlice)];
-      }
-      for (int i = tid; i < kSlice; i += kBlock) {
-        s_sph[i] = is_sphere[base + k0 + i];
-        s_valid[i] = valid_row[base + k0 + i];
-      }
-      __syncthreads();
-      if (live) {
-        for (int k = 0; k < kSlice; ++k) {
-          if (s_valid[k] == 0) continue;
-          float S[kOuts];
+    const int lo = ranges[2 * t];
+    const int hi = ranges[2 * t + 1];
+    assert(0 <= lo && lo <= hi && hi <= tile);
+    const float* cols_t = cols + static_cast<long long>(t) * kFeat * kOuts *
+                                     tile;
+    const int* sph_t = is_sphere + static_cast<long long>(t) * tile;
+    const int* valid_t = valid_row + static_cast<long long>(t) * tile;
+    pt_sweep::run_pipeline<kAsync>(
+        (hi - lo + slice - 1) / slice,
+        [&](int r, int b) {
+          const int s = lo + r * slice;
+          pt_sweep::stage_records<kAsync>(
+              cols_t, sph_t, valid_t, tile, s, min(slice, hi - s),
+              pt_sweep::run_buf(smem, n_buf, slice, b));
+        },
+        [&](int r, int b) {
+          if (!any_live) return;
+          const int s = lo + r * slice;
+          pt_sweep::sweep_records<RT, kTyped>(
+              rt, pt_sweep::run_buf(smem, n_buf, slice, b), g,
+              min(slice, hi - s), G, t * tile + s, t_min, t_max);
+        });
+  }
+  if (G > 1) {
+    float* s_t = pt_sweep::merge_t(smem, n_buf, slice);
+    pt_sweep::merge_groups(rt, G, g, j, lanes, s_t,
+                           reinterpret_cast<int*>(s_t + G * lanes * RT));
+    if (g != 0) return;
+  }
 #pragma unroll
-          for (int o = 0; o < kOuts; ++o) {
-            S[o] = pt_sweep::pair_scalar(p, s_cols + o * kSlice + k,
-                                         kOuts * kSlice);
-          }
-          float th;
-          const bool hit =
-              s_sph[k] != 0
-                  ? pt_sweep::sphere_hit(S[0], S[1], ai, inv_a, t_min, t_max,
-                                         &th)
-                  : pt_sweep::triangle_hit(S[0], S[1], S[2], S[3], t_min,
-                                           t_max, &th);
-          if (hit && th < t_acc) {
-            t_acc = th;
-            b_acc = base + k0 + k;
-          }
-        }
-      }
-      __syncthreads();  // all reads of this slice precede the next load
+  for (int i = 0; i < RT; ++i) {
+    const long long r = r0 + j + i * lanes;
+    if (r < n_rays) {
+      t_out[r] = rt.best[i].t;
+      best_out[r] = rt.best[i].idx;
     }
   }
-  if (live) {
-    t_out[r] = t_acc;
-    best_out[r] = b_acc;
+}
+
+template <int RT, bool kAsync, bool kTyped>
+int launch(const float* phi, const float* a, int n_rays, const float* cols,
+           const int* is_sphere, const int* valid_row, const int* ranges,
+           int n_tiles, int tile, float t_min, float t_max, float* t_out,
+           int* best_out, int groups, int lanes, int slice,
+           cudaStream_t stream) {
+  const size_t smem =
+      pt_sweep::sweep_smem_bytes(kAsync ? 2 : 1, slice, groups, lanes, RT);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense_sweep_kernel<RT, kAsync, kTyped>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const long long per_block = static_cast<long long>(lanes) * RT;
+  const int n_blocks = static_cast<int>((n_rays + per_block - 1) / per_block);
+  dense_sweep_kernel<RT, kAsync, kTyped>
+      <<<n_blocks, lanes * groups, smem, stream>>>(
+          phi, a, n_rays, cols, is_sphere, valid_row, ranges, n_tiles, tile,
+          t_min, t_max, lanes, slice, t_out, best_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches the sweep on `stream`; returns the cudaError_t of the launch (0 on
-// success, cudaErrorInvalidValue for a tile that is not a positive multiple
-// of 64). Shapes: phi (n_rays, 12); a, t_out, best_out (n_rays,); cols
-// (n_tiles, 12, 4 * tile); is_sphere, valid_row (n_tiles, tile). best_out is
-// -1 where no primitive is hit.
+// success, cudaErrorInvalidValue for parameters it does not take). Shapes:
+// phi (n_rays, 12); a, t_out, best_out (n_rays,); cols (n_tiles, 12, 4 *
+// tile); is_sphere, valid_row (n_tiles, tile); ranges (n_tiles, 2), the rows
+// [lo, hi) of each tile that are swept (asserted on the device to lie in
+// the tile). best_out is -1 where no primitive is hit. Parameters: rt rays
+// per thread (1, 2 or 4), `groups` groups of `lanes` threads per block
+// (lanes a multiple of 32, lanes * groups <= 512), `slice` prims staged per
+// run, flags bit 0: cp.async double buffer, bit 1: form all four pair
+// scalars of every primitive and run the full epilogues (rt 1, no double
+// buffer; for measurement only).
 extern "C" int dense_sweep_launch(const float* phi, const float* a, int n_rays,
                                   const float* cols, const int* is_sphere,
-                                  const int* valid_row, int n_tiles, int tile,
-                                  float t_min, float t_max, float* t_out,
-                                  int* best_out, void* stream) {
-  if (tile <= 0 || tile % kSlice != 0 || n_tiles <= 0) {
+                                  const int* valid_row, const int* ranges,
+                                  int n_tiles, int tile, float t_min,
+                                  float t_max, float* t_out, int* best_out,
+                                  int rt, int groups, int lanes, int slice,
+                                  int flags, void* stream) {
+  if (tile <= 0 || n_tiles <= 0 || lanes <= 0 || lanes % 32 != 0 ||
+      groups <= 0 || lanes * groups > pt_sweep::kMaxThreads || slice <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rays == 0) return 0;
-  const int n_blocks = (n_rays + kBlock - 1) / kBlock;
-  dense_sweep_kernel<<<n_blocks, kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      phi, a, n_rays, cols, is_sphere, valid_row, n_tiles, tile, t_min, t_max,
-      t_out, best_out);
-  return static_cast<int>(cudaGetLastError());
+  const bool async = (flags & 1) != 0;
+  const bool typed = (flags & 2) == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PT_DENSE_CASE(R, A, T)                                              \
+  if (rt == R && async == A && typed == T)                                  \
+    return launch<R, A, T>(phi, a, n_rays, cols, is_sphere, valid_row,      \
+                           ranges, n_tiles, tile, t_min, t_max, t_out,      \
+                           best_out, groups, lanes, slice, s);
+  PT_DENSE_CASE(1, false, true)
+  PT_DENSE_CASE(2, false, true)
+  PT_DENSE_CASE(4, false, true)
+  PT_DENSE_CASE(1, true, true)
+  PT_DENSE_CASE(2, true, true)
+  PT_DENSE_CASE(4, true, true)
+  PT_DENSE_CASE(1, false, false)
+#undef PT_DENSE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _LIBS: dict = {}       # source name -> loaded ctypes.CDLL
+_TYPED: set = set()    # source names whose prototypes are set
 BUILD_LOGS: dict = {}  # source name -> nvcc output of the build (if built)
 
 
@@ -102,13 +104,40 @@ def build(name: str) -> str:
     return build_all([name])[name]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+def load(name: str, prototypes: dict = None) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    ``prototypes`` ({function: argtypes}, each returning a C int) are set
+    on the library's functions once, the first time they are given."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(build(name))
         _LIBS[name] = lib
+    if prototypes and name not in _TYPED:
+        for fn_name, argtypes in prototypes.items():
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        _TYPED.add(name)
     return lib
+
+
+def ptxas_summary(log: str) -> list:
+    """(function, registers, spill store bytes, spill load bytes) of each
+    kernel in an nvcc ``-Xptxas -v`` log."""
+    out, func, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            func = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func is not None:
+            out.append((func, int(m.group(1)), *spills))
+            func, spills = None, (0, 0)
+    return out
 
 
 def check_arg(x, name: str, dtype, shape, device) -> None:

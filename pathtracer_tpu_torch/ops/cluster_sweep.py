@@ -45,8 +45,8 @@ from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops import _cuda_build
 from pathtracer_tpu_torch.ops.clusters import K_RES, ClusterTables
 from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, FEAT, OUTS,
-                                                   _epilogue, contract,
-                                                   ray_features)
+                                                   _epilogue, check_ranges,
+                                                   contract, ray_features)
 
 DEF_RAY_TILE = 128
 DEF_WINDOW = 4       # clusters per round's window
@@ -65,6 +65,21 @@ _ENTRY_MARGIN = 1e-4
 # run.
 MARCH_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+
+# Parameters of the CUDA window kernel (chosen on the card, PERF.md): rays
+# per thread, thread groups per chunk (at most what fits in 512 threads),
+# and flags (bit 0: a cp.async double buffer; bit 1: the full arithmetic
+# for every primitive, for measurement only). See csrc/window_sweep.cu.
+WINDOW_PARAMS = dict(rt=2, groups=8, flags=1)
+
+_MARCH_PROTOTYPES = {"cluster_march_launch": (
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_void_p] * 4)}
+_WINDOW_PROTOTYPES = {"window_sweep_launch": (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p])}
 
 
 def _cull_T(o, d, active, cmin, cmax, t_min):
@@ -164,13 +179,8 @@ def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
             ("valid_row", valid_row, torch.int32, (C_tot, K)),
             ("ctype", ctype, torch.int32, (C_tot,))):
         _cuda_build.check_arg(x, name, dtype, shape, phi.device)
-    lib = _cuda_build.load("cluster_march")
-    fn = lib.cluster_march_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
-                   + [ctypes.c_void_p] * 4)
+    fn = _cuda_build.load("cluster_march",
+                          _MARCH_PROTOTYPES).cluster_march_launch
     t_out = torch.empty(R, dtype=torch.float32, device=phi.device)
     best = torch.empty(R, dtype=torch.int32, device=phi.device)
     slots = torch.empty(n_chunks, dtype=torch.int32, device=phi.device)
@@ -344,23 +354,25 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
 
 
 def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
-                     K: int, W: int, t_min: float, ray_tile: int):
+                     ranges, K: int, W: int, t_min: float, ray_tile: int):
     """Plain PyTorch twin of the CUDA window kernel: same inputs, same
     (t_best (R,) f32, best (R,) int32), ``best`` -1 where nothing is hit.
 
     Chunk i of ``ray_tile`` rays sweeps clusters starts[i] .. starts[i] +
-    W - 1, or gives (BIG, -1) where skips[i] is set. Loops over the window
-    position j, vectorised over the chunks that are not skipped: the
-    left-to-right contraction, the epilogue with each primitive typed by its
-    own is_sphere row, hits in (t_min, BIG), the cluster's first minimum,
-    and a strict-``<`` merge across clusters in ascending order. Raises
-    ValueError where a swept chunk's window leaves the C_tot clusters."""
+    W - 1, each over its rows [lo, hi) = ranges[c] only, or gives (BIG, -1)
+    where skips[i] is set. Loops over the window position j, vectorised
+    over the chunks that are not skipped: the left-to-right contraction,
+    the epilogue with each primitive typed by its own is_sphere row, hits
+    in (t_min, BIG), the cluster's first minimum, and a strict-``<`` merge
+    across clusters in ascending order. Raises ValueError where a swept
+    chunk's window leaves the C_tot clusters or a range leaves [0, K]."""
     n_chunks = starts.shape[0]
     dev = phi.device
     C_tot = cols.shape[0]
     if bool(((skips == 0) & ((starts < 0) | (starts > C_tot - W))).any()):
         raise ValueError(f"a window [start, start + {W}) of a swept chunk "
                          f"leaves the {C_tot} clusters")
+    check_ranges(ranges, K)
     P = phi.view(n_chunks, ray_tile, FEAT)
     A = a.view(n_chunks, ray_tile)
     t_acc = torch.full((n_chunks, ray_tile), BIG, dtype=torch.float32,
@@ -372,13 +384,17 @@ def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
         P, A = P[live], A[live][:, :, None]
         start = starts[live].long()
         t_live, b_live = t_acc[live], b_acc[live]
+        k = torch.arange(K, device=dev)
         for j in range(W):
             c = start + j
+            rng = ranges[c]
+            swept = ((valid_row[c] != 0) & (k[None, :] >= rng[:, 0:1])
+                     & (k[None, :] < rng[:, 1:2]))            # (L, K)
             S = contract(P, cols[c])                     # (L, T, OUTS*K)
             t_eff = _epilogue(S[..., 0:K], S[..., K:2 * K],
                               S[..., 2 * K:3 * K], S[..., 3 * K:4 * K], A,
                               is_sphere[c][:, None, :] != 0,
-                              valid_row[c][:, None, :] != 0, t_min, BIG)
+                              swept[:, None, :], t_min, BIG)
             local_j = torch.argmin(t_eff, dim=2)   # first minimum
             local_t = torch.amin(t_eff, dim=2)
             better = local_t < t_live
@@ -390,9 +406,10 @@ def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
     return t_acc.reshape(-1), b_acc.reshape(-1)
 
 
-def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, K, W,
-                 t_min, ray_tile):
+def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
+                 K, W, t_min, ray_tile, params=None):
     global WINDOW_LAUNCHES
+    p = WINDOW_PARAMS if params is None else params
     n_chunks = starts.shape[0]
     R = n_chunks * ray_tile
     C_tot = cols.shape[0]
@@ -400,6 +417,13 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, K, W,
         raise ValueError("ray_tile must be a multiple of 32 up to 1024")
     if W < 1:
         raise ValueError(f"window width W must be positive, got {W}")
+    # a group: ceil(ray_tile / rt) threads in whole warps; as many groups
+    # as fit in 512 threads, up to the chosen number
+    per_group = -(-ray_tile // p["rt"])
+    lanes = -(-per_group // 32) * 32
+    if lanes > 512:
+        raise ValueError(f"ray_tile {ray_tile} needs rt >= 2")
+    groups = max(1, min(p["groups"], 512 // lanes))
     for name, x, dtype, shape in (
             ("phi", phi, torch.float32, (R, FEAT)),
             ("a", a, torch.float32, (R,)),
@@ -407,21 +431,19 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, K, W,
             ("skips", skips, torch.int32, (n_chunks,)),
             ("cols", cols, torch.float32, (C_tot, FEAT, OUTS * K)),
             ("is_sphere", is_sphere, torch.int32, (C_tot, K)),
-            ("valid_row", valid_row, torch.int32, (C_tot, K))):
+            ("valid_row", valid_row, torch.int32, (C_tot, K)),
+            ("ranges", ranges, torch.int32, (C_tot, 2))):
         _cuda_build.check_arg(x, name, dtype, shape, phi.device)
-    lib = _cuda_build.load("window_sweep")
-    fn = lib.window_sweep_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_void_p] * 3)
+    fn = _cuda_build.load("window_sweep",
+                          _WINDOW_PROTOTYPES).window_sweep_launch
     t_out = torch.empty(R, dtype=torch.float32, device=phi.device)
     best = torch.empty(R, dtype=torch.int32, device=phi.device)
     stream = torch.cuda.current_stream(phi.device).cuda_stream
     err = fn(phi.data_ptr(), a.data_ptr(), starts.data_ptr(),
              skips.data_ptr(), n_chunks, ray_tile, W, C_tot, cols.data_ptr(),
-             is_sphere.data_ptr(), valid_row.data_ptr(), K, t_min,
-             t_out.data_ptr(), best.data_ptr(), stream)
+             is_sphere.data_ptr(), valid_row.data_ptr(), ranges.data_ptr(),
+             K, t_min, t_out.data_ptr(), best.data_ptr(), p["rt"], groups,
+             p["flags"], stream)
     if err != 0:
         raise RuntimeError(f"window_sweep kernel launch failed: CUDA error "
                            f"{err}")
@@ -429,24 +451,27 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, K, W,
     return t_out, best
 
 
-def window_sweep(phi, a, starts, skips, cols, is_sphere, valid_row, K: int,
-                 W: int, t_min: float, ray_tile: int):
+def window_sweep(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
+                 K: int, W: int, t_min: float, ray_tile: int):
     """The window sweep: the CUDA kernel for CUDA tensors, the plain twin
     for CPU tensors. phi (R, 12), a = |d|^2 (R,), starts / skips
     (R / ray_tile,) int32, cols (C_tot, 12, 4K), is_sphere / valid_row
-    (C_tot, K) int32. Returns (t_best (R,) f32, best (R,) int32), ``best``
-    the winner's c * K + k, -1 where nothing is hit.
+    (C_tot, K) int32, ranges (C_tot, 2) int32: the rows [lo, hi) of each
+    cluster to sweep (``ClusterTables.ranges``). Returns (t_best (R,) f32,
+    best (R,) int32), ``best`` the winner's c * K + k, -1 where nothing is
+    hit.
 
     Every chunk that is not skipped needs 0 <= starts[i] and starts[i] + W
-    <= C_tot. The twin raises ValueError otherwise; the kernel fails a
-    device-side assert, so PyTorch raises at the stream's next sync (the
-    check costs no host sync per launch)."""
+    <= C_tot, and every range must lie in [0, K]. The twin raises
+    ValueError otherwise; the kernel fails a device-side assert, so PyTorch
+    raises at the stream's next sync (the check costs no host sync per
+    launch)."""
     if phi.device.type == "cuda":
         return _window_cuda(phi, a, starts, skips, cols, is_sphere,
-                            valid_row, K, W, t_min, ray_tile)
+                            valid_row, ranges, K, W, t_min, ray_tile)
     if phi.device.type == "cpu":
         return window_reference(phi, a, starts, skips, cols, is_sphere,
-                                valid_row, K, W, t_min, ray_tile)
+                                valid_row, ranges, K, W, t_min, ray_tile)
     raise ValueError(f"no window sweep for device {phi.device}")
 
 
@@ -503,7 +528,7 @@ def cluster_closest(ct: ClusterTables, o, d, t_min,
     active0 = active   # caller order
     t_min = float(t_min)
     tables = (ct.cols, ct.is_sphere.view(C_tot, K),
-              ct.valid_row.view(C_tot, K))
+              ct.valid_row.view(C_tot, K), ct.ranges)
 
     def window_pass(o_, d_, starts, skips, W_):
         phi = ray_features(o_, d_)

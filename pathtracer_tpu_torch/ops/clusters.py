@@ -19,7 +19,8 @@ import dataclasses
 import torch
 
 from pathtracer_tpu_torch.ops import morton
-from pathtracer_tpu_torch.ops.tensor_sweep import pack_sweep_tables
+from pathtracer_tpu_torch.ops.tensor_sweep import (pack_sweep_tables,
+                                                   row_ranges)
 from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE, Scene
 
 # Sort-key bands: regular prims carry their 30-bit morton code, padding
@@ -50,6 +51,12 @@ class ClusterTables:
     perm: torch.Tensor       # (total,) int64: original row per new row
     K: int
     C_reg: int
+    # (C_reg+1, 2) int32: the rows [lo, hi) of each cluster that hold a
+    # primitive of the scene (the window sweep sweeps only these; the
+    # padding rows, which ``valid_row`` marks valid as the reference's
+    # tables do, can never be hit). Regular clusters [0, n), the residual
+    # tile [K - n_huge, K), an empty cluster [0, 0).
+    ranges: torch.Tensor
 
 
 def _pad_prim_rows(scene: Scene, total: int) -> dict:
@@ -136,8 +143,13 @@ def build_cluster_tables(scene: Scene, K: int = 128) -> ClusterTables:
     ctype = torch.where(any_s & any_t, 0,
                         torch.where(any_s, 1, 2)).to(torch.int32)
 
+    # the sort key puts padding after the regular prims and before the huge
+    # ones, so each cluster's real rows are contiguous (row_ranges checks)
+    ranges = row_ranges((perm < n0).view(C_reg + 1, K))
+
     return ClusterTables(
         scene=new_scene, cols=tables.cols,
         is_sphere=tables.is_sphere.to(torch.int32)[:, None, :].contiguous(),
         valid_row=tables.valid_row.to(torch.int32)[:, None, :].contiguous(),
-        cmin=cmin, cmax=cmax, ctype=ctype, perm=perm, K=K, C_reg=C_reg)
+        cmin=cmin, cmax=cmax, ctype=ctype, perm=perm, K=K, C_reg=C_reg,
+        ranges=ranges)

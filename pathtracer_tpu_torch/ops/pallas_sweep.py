@@ -21,66 +21,84 @@ from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops import _cuda_build
 from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, FEAT, OUTS,
                                                    SweepTables, _epilogue,
-                                                   contract, merge_tile,
+                                                   check_ranges, contract,
+                                                   merge_tile,
                                                    pack_sweep_tables,
-                                                   ray_features)
+                                                   ray_features, row_ranges)
 from pathtracer_tpu_torch.scene.scene import Scene
 
 DEF_PRIM_TILE = 1024
-_SLICE = 64   # the kernel stages prims in slices of 64; tiles divide by it
+
+# Parameters of the CUDA kernel (chosen on the card, PERF.md): rays per
+# thread, thread groups per block, threads per group, prims staged per run,
+# and flags (bit 0: a cp.async double buffer; bit 1: the full arithmetic
+# for every primitive, for measurement only). See csrc/dense_sweep.cu.
+SWEEP_PARAMS = dict(rt=2, groups=4, lanes=128, slice=64, flags=0)
 
 # Launches of the CUDA sweep kernel in this process (the wrapper adds one per
 # launch and nowhere else); callers reset it to 0 to count a run.
 SWEEP_LAUNCHES = 0
 
+_PROTOTYPES = {"dense_sweep_launch": (
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p])}
 
-def sweep_reference(phi, a, cols, is_sphere, valid_row, t_min: float,
-                    t_max: float):
+
+def sweep_reference(phi, a, cols, is_sphere, valid_row, ranges,
+                    t_min: float, t_max: float):
     """Plain PyTorch twin of the CUDA sweep kernel: same inputs, same
     (t_best (R,) f32, best (R,) int32), ``best`` -1 where nothing is hit.
 
-    Per tile, the left-to-right contraction, the epilogue, the tile's first
-    minimum and a strict-``<`` merge into the running best."""
+    Per tile i, over its rows [lo, hi) = ranges[i] only: the left-to-right
+    contraction, the epilogue, the range's first minimum and a strict-``<``
+    merge into the running best. Raises ValueError where a range leaves
+    its tile."""
     n_tiles, tile = is_sphere.shape
+    check_ranges(ranges, tile)
     r = phi.shape[0]
     a2 = a[:, None]
     t_best = torch.full((r,), BIG, dtype=torch.float32, device=phi.device)
     best = torch.full((r,), -1, dtype=torch.int32, device=phi.device)
-    for i in range(n_tiles):
-        S = contract(phi, cols[i])
-        t_eff = _epilogue(S[:, 0:tile], S[:, tile:2 * tile],
-                          S[:, 2 * tile:3 * tile], S[:, 3 * tile:4 * tile],
-                          a2, is_sphere[i] != 0, valid_row[i] != 0, t_min,
-                          t_max)
-        t_best, best = merge_tile(t_eff, i * tile, t_best, best)
+    for i, (lo, hi) in enumerate(ranges.tolist()):
+        n = hi - lo
+        if n == 0:
+            continue
+        S = contract(phi, cols[i].view(FEAT, OUTS, tile)[:, :, lo:hi]
+                     .reshape(FEAT, OUTS * n))
+        t_eff = _epilogue(S[:, 0:n], S[:, n:2 * n], S[:, 2 * n:3 * n],
+                          S[:, 3 * n:4 * n], a2, is_sphere[i, lo:hi] != 0,
+                          valid_row[i, lo:hi] != 0, t_min, t_max)
+        t_best, best = merge_tile(t_eff, i * tile + lo, t_best, best)
     return t_best, best
 
 
-def _sweep_cuda(phi, a, cols, is_sphere, valid_row, t_min, t_max):
+def _sweep_cuda(phi, a, cols, is_sphere, valid_row, ranges, t_min, t_max,
+                params=None):
     global SWEEP_LAUNCHES
+    p = SWEEP_PARAMS if params is None else params
     n_tiles, tile = is_sphere.shape
     r = phi.shape[0]
-    if tile % _SLICE != 0:
-        raise ValueError(f"tile {tile} is not a multiple of {_SLICE}")
+    if (p["lanes"] % 32 != 0 or not 0 < p["lanes"] * p["groups"] <= 512
+            or p["slice"] <= 0):
+        raise ValueError(f"bad kernel parameters {p}")
     for name, x, dtype, shape in (
             ("phi", phi, torch.float32, (r, FEAT)),
             ("a", a, torch.float32, (r,)),
             ("cols", cols, torch.float32, (n_tiles, FEAT, OUTS * tile)),
             ("is_sphere", is_sphere, torch.int32, (n_tiles, tile)),
-            ("valid_row", valid_row, torch.int32, (n_tiles, tile))):
+            ("valid_row", valid_row, torch.int32, (n_tiles, tile)),
+            ("ranges", ranges, torch.int32, (n_tiles, 2))):
         _cuda_build.check_arg(x, name, dtype, shape, phi.device)
-    lib = _cuda_build.load("dense_sweep")
-    fn = lib.dense_sweep_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)
+    fn = _cuda_build.load("dense_sweep", _PROTOTYPES).dense_sweep_launch
     t_out = torch.empty(r, dtype=torch.float32, device=phi.device)
     best = torch.empty(r, dtype=torch.int32, device=phi.device)
     stream = torch.cuda.current_stream(phi.device).cuda_stream
     err = fn(phi.data_ptr(), a.data_ptr(), r, cols.data_ptr(),
-             is_sphere.data_ptr(), valid_row.data_ptr(), n_tiles, tile,
-             t_min, t_max, t_out.data_ptr(), best.data_ptr(), stream)
+             is_sphere.data_ptr(), valid_row.data_ptr(), ranges.data_ptr(),
+             n_tiles, tile, t_min, t_max, t_out.data_ptr(), best.data_ptr(),
+             p["rt"], p["groups"], p["lanes"], p["slice"], p["flags"],
+             stream)
     if err != 0:
         raise RuntimeError(f"dense_sweep kernel launch failed: CUDA error "
                            f"{err}")
@@ -88,24 +106,33 @@ def _sweep_cuda(phi, a, cols, is_sphere, valid_row, t_min, t_max):
     return t_out, best
 
 
-def sweep(phi, a, cols, is_sphere, valid_row, t_min: float, t_max: float):
+def sweep(phi, a, cols, is_sphere, valid_row, ranges, t_min: float,
+          t_max: float):
     """The dense sweep: the CUDA kernel for CUDA tensors, the plain twin for
     CPU tensors. phi (R, 12), a = |d|^2 (R,), cols (T, 12, 4*tile),
-    is_sphere / valid_row (T, tile) int32. Returns (t_best (R,) f32, best
-    (R,) int32), ``best`` -1 where nothing is hit."""
+    is_sphere / valid_row (T, tile) int32, ranges (T, 2) int32: the rows
+    [lo, hi) of each tile to sweep. Returns (t_best (R,) f32, best (R,)
+    int32), ``best`` -1 where nothing is hit. A range that leaves its tile
+    raises ValueError in the twin and fails a device-side assert in the
+    kernel (PyTorch raises at the next sync)."""
     if phi.device.type == "cuda":
-        return _sweep_cuda(phi, a, cols, is_sphere, valid_row, t_min, t_max)
+        return _sweep_cuda(phi, a, cols, is_sphere, valid_row, ranges, t_min,
+                           t_max)
     if phi.device.type == "cpu":
-        return sweep_reference(phi, a, cols, is_sphere, valid_row, t_min,
-                               t_max)
+        return sweep_reference(phi, a, cols, is_sphere, valid_row, ranges,
+                               t_min, t_max)
     raise ValueError(f"no dense sweep for device {phi.device}")
 
 
 def kernel_tables(tables: SweepTables):
-    """(cols, is_sphere, valid_row) of ``tables`` as :func:`sweep` takes
-    them (int32 masks)."""
+    """(cols, is_sphere, valid_row, ranges) of ``tables`` as :func:`sweep`
+    takes them: int32 masks, and each tile's valid rows [0, n) as its range
+    (``valid_row`` is a prefix of each tile; ValueError otherwise)."""
+    ranges = row_ranges(tables.valid_row)
+    if bool((ranges[:, 0] != 0).any()):
+        raise ValueError("valid_row is not a prefix of each tile")
     return (tables.cols, tables.is_sphere.to(torch.int32).contiguous(),
-            tables.valid_row.to(torch.int32).contiguous())
+            tables.valid_row.to(torch.int32).contiguous(), ranges)
 
 
 def sweep_inputs(kt, o, d, t_min, t_max=BIG):

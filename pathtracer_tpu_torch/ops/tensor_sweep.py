@@ -93,6 +93,28 @@ def pack_sweep_tables(scene: Scene, tile: int = 2048) -> SweepTables:
                        tile=tile, num_prims=n)
 
 
+def row_ranges(real):
+    """(T, 2) int32 [lo, hi) of the True rows of each row of ``real`` (T,
+    W) bool, which must be contiguous in each row (raises ValueError
+    otherwise); an empty row gives [0, 0). The sweep kernels and their
+    twins sweep only these rows."""
+    n = real.sum(dim=1)
+    lo = torch.where(n > 0, torch.argmax(real.to(torch.uint8), dim=1), 0)
+    hi = lo + n
+    k = torch.arange(real.shape[1], device=real.device)
+    if not bool((real == ((k >= lo[:, None]) & (k < hi[:, None]))).all()):
+        raise ValueError("the rows to sweep are not contiguous")
+    return torch.stack([lo, hi], dim=1).to(torch.int32).contiguous()
+
+
+def check_ranges(ranges, width: int) -> None:
+    """Raise ValueError unless every [lo, hi) of ``ranges`` lies in
+    [0, width]: what the twins check, and the kernels assert."""
+    lo, hi = ranges[:, 0], ranges[:, 1]
+    if bool(((lo < 0) | (lo > hi) | (hi > width)).any()):
+        raise ValueError(f"a row range leaves [0, {width}]")
+
+
 def ray_features(o, d):
     """phi = [d, o, o x d, o.d, |o|^2, 1] -- (R, 12)."""
     w = vec.cross(o, d)

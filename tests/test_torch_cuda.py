@@ -6,10 +6,10 @@ installed; the repository's conftest imports jax, hence on a GPU machine:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: those of tests/test_torch_march.py (kernel and twin are built
-to round alike, so they are expected to agree to the bit); the window
-kernel, which has no stop test and no tie between two implementations of
-the merge, is held to the bit.
+Tolerances: the march, those of tests/test_torch_march.py (kernel and twin
+are built to round alike, so they are expected to agree to the bit); the
+dense and window sweeps, which have no stop test and merge ties by the
+twins' rule, are held to the bit, at every kernel parameter set they take.
 """
 import os
 import subprocess
@@ -129,10 +129,53 @@ def _dense_scene(name, dev):
     return scene, cam
 
 
+# parameter sets of the sweep kernels besides the chosen ones: rays per
+# thread, groups, and for the dense sweep threads per group and prims per
+# run; flags (1: cp.async double buffer, 2: the full arithmetic for every
+# primitive)
+DENSE_PARAMS = [dict(rt=1, groups=1, lanes=128, slice=64, flags=0),
+                dict(rt=4, groups=3, lanes=32, slice=40, flags=1),
+                dict(rt=2, groups=8, lanes=64, slice=256, flags=1),
+                dict(rt=1, groups=2, lanes=96, slice=8, flags=2)]
+WINDOW_PARAMS = [dict(rt=1, groups=1, flags=0), dict(rt=1, groups=3, flags=1),
+                 dict(rt=4, groups=8, flags=1), dict(rt=2, groups=5, flags=0),
+                 dict(rt=1, groups=4, flags=2)]
+
+
+def _tie_scene(dev):
+    """One triangle at rows 0 and 5 (the same triangle twice), spheres
+    between and after them: rays through the triangle tie at bit-equal t
+    and the lower index must win."""
+    from pathtracer_tpu_torch.scene.scene import SceneBuilder
+    b = SceneBuilder()
+    m = b.add_lambertian((0.5, 0.5, 0.5))
+    tri = ((-1, -1, 0), (1, -1, 0), (0, 1, 0))
+    b.add_triangle(*tri, m)
+    for i in range(4):
+        b.add_sphere((3.0 * (i + 1), 0, -2), 0.5, m)
+    b.add_triangle(*tri, m)
+    for i in range(30):
+        b.add_sphere((0.1 * i - 1.5, 0.2 * (i % 5) - 0.5, -4 - 0.1 * i),
+                     0.4, m)
+    scene = b.build(device=dev)
+    n = 1000
+    rng = np.random.default_rng(9)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0:2] = rng.uniform(-0.6, 0.6, (n, 2))
+    o[:, 2] = 3.0
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (n, 1))
+    return scene, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def _assert_bit_equal(got, ref):
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+
+
 @pytest.mark.parametrize("name,kind,t_min", [
     ("triangle", "camera", T_MIN), ("cornell", "camera", T_MIN),
     ("cornell", "dead", T_MIN), ("cornell", "camera", K_SHADOW_T_MIN)])
-@pytest.mark.parametrize("n", [512, 90000])
+@pytest.mark.parametrize("n", [512, 1001, 90000])
 def test_dense_kernel_matches_twin(gpu, name, kind, t_min, n):
     scene, cam = _dense_scene(name, gpu)
     kt = pallas_sweep.kernel_tables(pack_sweep_tables(
@@ -146,10 +189,37 @@ def test_dense_kernel_matches_twin(gpu, name, kind, t_min, n):
     assert pallas_sweep.SWEEP_LAUNCHES == before + 1
     t_r, b_r = (x.cpu().numpy() for x in pallas_sweep.sweep_reference(*args))
     assert pallas_sweep.SWEEP_LAUNCHES == before + 1
-    _assert_hits_match(t_k, b_k, t_r, b_r, scene.prim_type.cpu().numpy())
+    np.testing.assert_array_equal(b_k, b_r)
+    np.testing.assert_array_equal(t_k, t_r)
     assert (b_k >= 0).sum() > n // 4
     if kind == "dead":
         assert (b_k[::5] == -1).all()
+
+
+@pytest.mark.parametrize("params", DENSE_PARAMS)
+@pytest.mark.parametrize("n", [1, 129, 1001, 20000])
+def test_dense_kernel_parameters_match_twin(gpu, params, n):
+    """Every parameter set the kernel takes, on ragged ray counts (not a
+    multiple of rt, of the block or of 128), the triangle world."""
+    scene, cam = _dense_scene("triangle", gpu)
+    kt = pallas_sweep.kernel_tables(pack_sweep_tables(
+        scene, tile=pallas_sweep.DEF_PRIM_TILE))
+    args = pallas_sweep.sweep_inputs(kt, *_wavefront("camera", cam, n, gpu),
+                                     T_MIN)
+    _assert_bit_equal(pallas_sweep._sweep_cuda(*args, params=params),
+                      pallas_sweep.sweep_reference(*args))
+
+
+@pytest.mark.parametrize("params", [None] + DENSE_PARAMS)
+def test_dense_kernel_tie_goes_to_the_lower_index(gpu, params):
+    scene, o, d = _tie_scene(gpu)
+    for tile in (128, 1024):
+        kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=tile))
+        args = pallas_sweep.sweep_inputs(kt, o, d, T_MIN)
+        got = pallas_sweep._sweep_cuda(*args, params=params)
+        _assert_bit_equal(got, pallas_sweep.sweep_reference(*args))
+        b = got[1].cpu().numpy()
+        assert (b == 0).sum() > 100 and not (b == 5).any()
 
 
 def test_dense_wrapper_rejects_bad_inputs(gpu):
@@ -165,12 +235,32 @@ def test_dense_wrapper_rejects_bad_inputs(gpu):
         bad[i] = bad_x
         with pytest.raises(err):
             pallas_sweep.sweep(*bad)
-    # a tile that the kernel cannot stage (not a multiple of 64)
-    kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=128))
-    with pytest.raises(ValueError):
-        pallas_sweep.sweep(*pallas_sweep.sweep_inputs(
-            (kt[0][:, :, :4 * 100].contiguous(), kt[1][:, :100].contiguous(),
-             kt[2][:, :100].contiguous()), o, d, T_MIN))
+    # the ranges: dtype, shape and device are checked
+    for bad_r, err in ((args[5].long(), TypeError),
+                       (args[5][:, :1].contiguous(), ValueError),
+                       (torch.cat([args[5], args[5]]), ValueError),
+                       (args[5].cpu(), ValueError)):
+        bad = list(args)
+        bad[5] = bad_r
+        with pytest.raises(err):
+            pallas_sweep.sweep(*bad)
+    # bad kernel parameters raise before a launch
+    for params in (dict(rt=2, groups=2, lanes=48, slice=64, flags=0),
+                   dict(rt=2, groups=9, lanes=64, slice=64, flags=0),
+                   dict(rt=2, groups=2, lanes=64, slice=0, flags=0)):
+        with pytest.raises(ValueError):
+            pallas_sweep._sweep_cuda(*args, params=params)
+    with pytest.raises(RuntimeError):
+        pallas_sweep._sweep_cuda(*args, params=dict(
+            rt=3, groups=1, lanes=64, slice=64, flags=0))
+    # a tile that is not a multiple of the kernel's 64-prim slice
+    kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=640))
+    cut = (kt[0][:, :, :4 * 100].contiguous(), kt[1][:, :100].contiguous(),
+           kt[2][:, :100].contiguous())
+    cut = cut + (torch.tensor([[0, 100]], dtype=torch.int32, device=gpu),)
+    args = pallas_sweep.sweep_inputs(cut, o, d, T_MIN)
+    _assert_bit_equal(pallas_sweep.sweep(*args),
+                      pallas_sweep.sweep_reference(*args))
 
 
 def test_small_cornell_render_matches_cpu(gpu):
@@ -221,8 +311,8 @@ def _window_args(ct, o, d, kind):
     else:   # all skipped
         starts, skips, W = zeros + C_tot, zeros + 1, 4
     return (phi, a, starts.contiguous(), skips.contiguous(), ct.cols,
-            ct.is_sphere.view(C_tot, K), ct.valid_row.view(C_tot, K), K, W,
-            T_MIN, 128)
+            ct.is_sphere.view(C_tot, K), ct.valid_row.view(C_tot, K),
+            ct.ranges, K, W, T_MIN, 128)
 
 
 @pytest.mark.parametrize("kind", ["residual", "window", "fallback", "last",
@@ -261,7 +351,10 @@ def test_window_wrapper_rejects_bad_inputs(gpu):
             (0, args[0].double(), TypeError),
             (1, args[1].cpu(), ValueError),
             (2, args[2].long(), TypeError),
-            (0, args[0].t().contiguous().t(), ValueError)):
+            (0, args[0].t().contiguous().t(), ValueError),
+            (7, args[7].long(), TypeError),
+            (7, args[7][1:].contiguous(), ValueError),
+            (7, args[7].cpu(), ValueError)):
         bad = list(args)
         bad[i] = bad_x
         with pytest.raises(err):
@@ -272,6 +365,51 @@ def test_window_wrapper_rejects_bad_inputs(gpu):
     ok[3] = torch.ones_like(args[3])
     t, b = cluster_sweep.window_sweep(*ok)
     assert (b == -1).all()
+
+
+@pytest.mark.parametrize("params", WINDOW_PARAMS)
+@pytest.mark.parametrize("W", [1, 3, 4, 5, "C_reg"])
+def test_window_kernel_parameters_match_twin(gpu, params, W):
+    """Every parameter set the kernel takes, on windows of 1, 3, 4, 5 and
+    C_reg clusters (not divisible by the groups), one chunk's window over
+    a cluster whose range is empty, one over the residual tile."""
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=128)
+    o, d = _wavefront("camera", cam, 2048, gpu)
+    args = list(_window_args(ct, o, d, "window"))
+    C_reg, C_tot = ct.C_reg, ct.cols.shape[0]
+    W = C_reg if W == "C_reg" else W
+    args[9] = W
+    args[2] = torch.clamp(args[2], 0, C_tot - W).contiguous()
+    args[2][0] = C_tot - W
+    args[3] = torch.zeros_like(args[3])
+    ranges = ct.ranges.clone()
+    ranges[int(args[2][1])] = torch.tensor([7, 7])
+    args[7] = ranges
+    _assert_bit_equal(cluster_sweep._window_cuda(*args, params=params),
+                      cluster_sweep.window_reference(*args))
+
+
+@pytest.mark.parametrize("params", [None] + WINDOW_PARAMS)
+def test_window_kernel_tie_goes_to_the_lower_index(gpu, params):
+    scene, o, d = _tie_scene(gpu)
+    ct = build_cluster_tables(scene, K=128)
+    # the twin triangles' rows in the reordered tables: adjacent, so in
+    # different groups
+    rows = torch.nonzero((ct.perm == 0) | (ct.perm == 5)).squeeze(1)
+    assert rows.tolist() == [int(rows[0]), int(rows[0]) + 1]
+    o = o[:896]
+    d = d[:896]
+    for kind in ("fallback", "last"):
+        args = _window_args(ct, o, d, kind)
+        if kind == "last":
+            args = args[:2] + (torch.zeros_like(args[2]),) + args[3:9] + (
+                ct.cols.shape[0],) + args[10:]
+        got = cluster_sweep._window_cuda(*args, params=params)
+        _assert_bit_equal(got, cluster_sweep.window_reference(*args))
+        b = got[1].cpu().numpy()
+        assert (b == int(rows[0])).sum() > 100
+        assert not (b == int(rows[1])).any()
 
 
 @pytest.mark.parametrize("shift", ["1", "-C_tot"])
@@ -293,6 +431,43 @@ o, d = t._wavefront("camera", cam, 512, dev)
 args = list(t._window_args(ct, o, d, "last"))
 args[2] = args[2] + {shift}
 t.cluster_sweep.window_sweep(*args)
+torch.cuda.synchronize()
+print("no error")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=os.path.dirname(here))
+    assert out.returncode != 0 and "no error" not in out.stdout
+    assert "device-side assert" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("kernel", ["dense", "window"])
+def test_sweep_kernels_assert_ranges_off_the_tables(gpu, kernel):
+    """A range past the end of its tile or cluster fails the kernel's
+    device-side assert (each case in a process of its own)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if kernel == "dense":
+        call = """
+scene, cam = t.get_world("triangle", device=dev)
+kt = list(t.pallas_sweep.kernel_tables(t.pack_sweep_tables(scene, 1024)))
+kt[3] = kt[3] + 424
+o, d = t._wavefront("camera", cam, 512, dev)
+t.pallas_sweep.sweep(*t.pallas_sweep.sweep_inputs(kt, o, d, 1e-3))
+"""
+    else:
+        call = """
+scene, cam = t.get_world("bunny", device=dev)
+ct = t.build_cluster_tables(scene, K=128)
+o, d = t._wavefront("camera", cam, 512, dev)
+args = list(t._window_args(ct, o, d, "fallback"))
+args[7] = args[7] + 1
+t.cluster_sweep.window_sweep(*args)
+"""
+    code = f"""
+import sys, torch
+sys.path.insert(0, {here!r})
+import test_torch_cuda as t
+dev = torch.device("cuda")
+{call}
 torch.cuda.synchronize()
 print("no error")
 """
