@@ -30,10 +30,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the reference's default, 800x450, 100 spp, depth 50 (dense sweep); the
    bunny again on the rounds route (PT_CLUSTER_STRATEGY=rounds,
    PT_CLUSTER_K=128: window sweep, no march), whose image must agree with
-   the march's, with its window launches counted by kind; then the same
-   rounds render once more under ``torch.profiler`` for the window
-   kernel's share of the device time and the device's busy share. Each
-   checks finite pixels and the image mean and writes out/;
+   the march's, with its window launches counted by kind; then the
+   triangle world at 1 spp and the rounds bunny once more under
+   ``torch.profiler``, for the device's busy share and the sweep kernel's
+   share of the device time. Each checks finite pixels and the image mean
+   and writes out/;
 5. end to end: small renders on the card against the same renders on the
    CPU (the plain twins, which the CPU tests hold against the JAX
    reference): the bunny, cornell-full through the dense sweep with NEE,
@@ -44,11 +45,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --bench [DIR]
+
+times the dense and window sweeps alone, on the inputs of phases 3b and 3c
+(the same builders), and prints no result line: each wavefront or launch
+with the wrapper's time (CUDA events, median of 20 calls after a warm-up)
+and the kernel's own device time (``torch.profiler``, the mean over 20
+launches), beside the card's name and power limit. With DIR it imports
+``pathtracer_tpu_torch`` from that checkout instead of this one, so one
+command can time two versions of the kernels on one card, in turns.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -64,6 +77,7 @@ RAYS = 57600           # bunny chunk
 TRI_RAYS = 90000       # triangle world chunk (800x450 / 4)
 CORNELL_RAYS = 65536   # cornell-full chunk (256x256)
 TRIANGLE_SPP = 100     # the reference's default; cut spp first for time
+BENCH_REPS = 20        # timed calls per wavefront or launch in --bench
 T_MIN = 1e-3
 ROUNDS_K = 128         # the rounds strategy needs K % 128 == 0
 ROUNDS_ENV = {"PT_CLUSTER_STRATEGY": "rounds", "PT_CLUSTER_K": str(ROUNDS_K)}
@@ -126,22 +140,93 @@ def bound(n_bytes: float, n_ops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def nbytes(*tensors) -> int:
-    return sum(x.numel() * x.element_size() for x in tensors)
+def nbytes(*xs) -> int:
+    """Bytes of the tensors among ``xs``."""
+    return sum(x.numel() * x.element_size() for x in xs
+               if hasattr(x, "element_size"))
 
 
 def kernel_label(mangled: str) -> str:
-    """A kernel's short name from its mangled one: the name and, for the
-    sweep-core kernels, rt / cp.async / typed from the template
-    arguments."""
+    """A kernel's short name from its mangled one."""
     m = re.search(r"(cluster_march|dense_sweep|window_sweep)_kernel",
                   mangled)
-    label = m.group(1) if m else mangled
-    t = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", mangled)
-    if t:
-        label += (f"<rt={t.group(1)}, cp.async={t.group(2)}, "
-                  f"typed={t.group(3)}>")
-    return label
+    return m.group(1) if m else mangled
+
+
+def named(fn, args) -> dict:
+    """The arguments of the call ``fn(*args)``, by parameter name."""
+    return inspect.signature(fn).bind(*args).arguments
+
+
+def with_args(fn, args, **changes) -> tuple:
+    """``args`` of a call of ``fn`` with the named ones replaced."""
+    bound = inspect.signature(fn).bind(*args)
+    bound.arguments.update(changes)
+    return bound.args
+
+
+def camera_wavefront(dev, cam, n, seed):
+    """n camera rays of ``cam`` from the seed, on ``dev``."""
+    import torch
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.core.camera import get_rays
+    u = prng.uniform(prng.fold_in(prng.PRNGKey(seed), 1), (4, n), dev)
+    o, d, _ = get_rays(cam, u[0], u[1], u[2], u[3],
+                       torch.zeros(n, device=dev))
+    return o, d
+
+
+def dense_wavefronts(dev):
+    """The dense sweep's main-path inputs, as (name, scene, sweep tables,
+    o, d, t_min): the triangle world's 90,000-ray camera wavefront,
+    cornell-full's 65,536-ray camera wavefront, and a shadow wavefront
+    from its hits towards sampled light points (t_min =
+    K_SHADOW_T_MIN)."""
+    import torch
+    from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import intersect, pallas_sweep, tensor_sweep
+    from pathtracer_tpu_torch.presets import get_preset
+    from pathtracer_tpu_torch.render import lights
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    tri_scene, tri_cam = get_world("triangle", device=dev)
+    cor_scene, cor_cam, _ = get_preset("cornell-full", device=dev)
+    tri_tables, cor_tables = (tensor_sweep.pack_sweep_tables(
+        sc, tile=pallas_sweep.DEF_PRIM_TILE) for sc in (tri_scene, cor_scene))
+    o_c, d_c = camera_wavefront(dev, cor_cam, CORNELL_RAYS, 2)
+    idx, _, valid = pallas_sweep.pallas_closest(cor_tables, o_c, d_c, T_MIN)
+    rec = intersect.hit_records_from_prims(cor_scene, idx, o_c, d_c, T_MIN,
+                                           intersect.BIG_T, valid)
+    u_l = prng.uniform(prng.fold_in(prng.PRNGKey(3), 1), (CORNELL_RAYS, 3),
+                       dev)
+    point, _, _, _ = lights.sample_lights(cor_scene, u_l)
+    o_s = rec.p + T_MIN * rec.normal
+    d_s = torch.where(valid[:, None], point - o_s, 0.0)
+    o_t, d_t = camera_wavefront(dev, tri_cam, TRI_RAYS, 1)
+    return [("triangle camera", tri_scene, tri_tables, o_t, d_t, T_MIN),
+            ("cornell-full camera", cor_scene, cor_tables, o_c, d_c, T_MIN),
+            ("cornell-full shadow", cor_scene, cor_tables, o_s, d_s,
+             K_SHADOW_T_MIN)]
+
+
+def rounds_launches(ct, o, d):
+    """Every window-sweep launch of one rounds query of the rays (o, d) on
+    the cluster tables ``ct``, as (kind, window_sweep arguments), then
+    ("fallback, all chunks", ...): a fallback (W = C_reg from cluster 0)
+    over every chunk of the query's first launch."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster_sweep
+    fn = cluster_sweep.window_sweep
+    with mock.patch.object(cluster_sweep, "window_sweep", wraps=fn) as spy:
+        cluster_sweep.cluster_closest(ct, o, d, T_MIN)
+    captured = [call.args for call in spy.call_args_list]
+    kinds = window_kinds([named(fn, c)["W"] for c in captured], ct.C_reg)
+    if len(captured) < 2 or kinds[0] != "residual" or kinds[1] != "round 1":
+        fail(f"rounds query: expected a W=1 residual pass and a W=4 round, "
+             f"got {kinds}")
+    zeros = torch.zeros_like(named(fn, captured[0])["starts"])
+    full = with_args(fn, captured[0], starts=zeros, skips=zeros, W=ct.C_reg)
+    return list(zip(kinds, captured)) + [("fallback, all chunks", full)]
 
 
 def window_kinds(widths, C_reg):
@@ -166,36 +251,37 @@ def kind_order(kind: str):
         else (1, int(kind.split()[1]))
 
 
-def profile_rounds(cli, argv, card, torch):
-    """The rounds bunny once more under torch.profiler (device activity
-    only): the window kernel's share of the device time and of the wall,
-    and the device's busy share of the wall."""
+def profile_render(cli, name, argv, kernel, card, torch, env=None):
+    """One render of ``argv`` under torch.profiler (device activity only):
+    the device's busy share of the wall, the kernels launched, and the
+    share of the device time and of the wall taken by ``kernel``."""
     from torch.profiler import ProfilerActivity, profile
-    with environ(ROUNDS_ENV):
+    with environ(env or {}):
         args = cli.build_parser().parse_args(argv + ["--device", DEVICE])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             # the render's wall; the device time also holds the table build
             _, wall, _, _ = cli.render_cli(args)
-    device_us = window_us = 0.0
-    n_window = 0
+    device_us = kernel_us = 0.0
+    n_all = n_kernel = 0
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0)))
         device_us += us
-        if "window_sweep_kernel" in e.key:
-            window_us += us
-            n_window += e.count
+        n_all += e.count
+        if kernel in e.key:
+            kernel_us += us
+            n_kernel += e.count
     if device_us <= 0.0:
-        print("rounds bunny under torch.profiler: device time not measured "
-              "(the profiler recorded none)")
+        print(f"{name} under torch.profiler: device time not measured (the "
+              f"profiler recorded none)")
         return
     busy = device_us / 1e6 / wall
-    print(f"rounds bunny under torch.profiler: wall {wall:.4f} s, device "
-          f"time {device_us / 1e6:.4f} s (busy share {busy:.4f}), window "
-          f"kernel {window_us / 1e6:.4f} s over {n_window} "
-          f"launches ({window_us / device_us:.4f} of the device time, "
-          f"{window_us / 1e6 / wall:.4f} of the wall) [{card}]")
+    print(f"{name} under torch.profiler: wall {wall:.4f} s, device time "
+          f"{device_us / 1e6:.4f} s (busy share {busy:.4f}), {n_all} kernel "
+          f"launches; {kernel} {kernel_us / 1e6:.4f} s over {n_kernel} "
+          f"launches ({kernel_us / device_us:.4f} of the device time, "
+          f"{kernel_us / 1e6 / wall:.4f} of the wall) [{card}]")
 
 
 def needed_ops(torch, phi, a, block, sph, chunk=16384):
@@ -231,20 +317,21 @@ def range_block(cols, is_sphere, lo, hi):
     return block.reshape(cols.shape[0], 4 * n), is_sphere[lo:hi] != 0
 
 
-def window_needed_ops(torch, args):
-    """needed_ops of one window-sweep launch: each cluster against the rays
-    of the swept chunks whose window holds it, over its real rows."""
-    phi, a, starts, skips, cols, is_sphere, _, ranges, K, W = args[:10]
-    ray_tile = args[11]
+def window_needed_ops(torch, w):
+    """needed_ops of one window-sweep launch (its arguments ``w`` by name):
+    each cluster against the rays of the swept chunks whose window holds
+    it, over its real rows."""
+    starts, skips, W, ray_tile = w["starts"], w["skips"], w["W"], \
+        w["ray_tile"]
     n_chunks = starts.shape[0]
-    P = phi.view(n_chunks, ray_tile, -1)
-    A = a.view(n_chunks, ray_tile)
+    P = w["phi"].view(n_chunks, ray_tile, -1)
+    A = w["a"].view(n_chunks, ray_tile)
     total = 0.0
-    for c, (lo, hi) in enumerate(ranges.tolist()):
+    for c, (lo, hi) in enumerate(w["ranges"].tolist()):
         sel = (skips == 0) & (starts <= c) & (c < starts + W)
         if hi == lo or not bool(sel.any()):
             continue
-        block, sph = range_block(cols[c], is_sphere[c], lo, hi)
+        block, sph = range_block(w["cols"][c], w["is_sphere"][c], lo, hi)
         total += needed_ops(torch, P[sel].reshape(-1, P.shape[2]),
                             A[sel].reshape(-1), block, sph)
     return total
@@ -311,13 +398,72 @@ def check_image(name, img_np, shape, lo, hi):
     return mean
 
 
+def device_ms(fn, torch, reps: int) -> float:
+    """Mean device time of the sweep kernel launched by ``fn()`` over
+    ``reps`` calls after a warm-up, from torch.profiler (device activity
+    only)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0))
+             for e in prof.key_averages() if "sweep_kernel" in e.key)
+    return us / 1e3 / reps
+
+
+def bench(tree: str, reps: int = BENCH_REPS) -> int:
+    """The dense and window sweeps alone on the inputs of phases 3b and 3c,
+    with ``pathtracer_tpu_torch`` imported from ``tree``."""
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    try:
+        from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    except ImportError as e:
+        fail(f"no pathtracer_tpu_torch in {tree} ({e})")
+    from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    dev = torch.device(DEVICE)
+    card = card_line()
+    print(f"bench: {os.path.dirname(os.path.dirname(pallas_sweep.__file__))}"
+          f" [{card}]", flush=True)
+
+    def line(what, fn):
+        print(f"{what}: {cuda_ms(fn, torch, reps):.4f} ms, device "
+              f"{device_ms(fn, torch, reps):.4f} ms [{card}]", flush=True)
+
+    for name, _, tables, o, d, t_min in dense_wavefronts(dev):
+        args = pallas_sweep.sweep_inputs(pallas_sweep.kernel_tables(tables),
+                                         o, d, t_min)
+        line(f"dense_sweep {name}", lambda: pallas_sweep.sweep(*args))
+    scene, cam = get_world("bunny", device=dev)
+    o, d = camera_wavefront(dev, cam, RAYS, 0)
+    for kind, args in rounds_launches(build_cluster_tables(scene, K=ROUNDS_K),
+                                      o, d):
+        w = named(cluster_sweep.window_sweep, args)
+        line(f"window_sweep {kind} (W={w['W']}, "
+             f"{int((w['skips'] == 0).sum())} live chunks)",
+             lambda: cluster_sweep.window_sweep(*args))
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Chip smoke test of the "
+                                 "PyTorch/CUDA port.")
+    ap.add_argument("--bench", nargs="?", const=HERE, metavar="DIR",
+                    help="time the dense and window sweeps alone, with the "
+                    "port imported from DIR (default: this checkout)")
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no GPU, nothing to test")
+    if opts.bench:
+        return bench(opts.bench)
     sys.path.insert(0, HERE)
     try:
         from pathtracer_tpu_torch.ops import (_cuda_build, cluster_sweep,
@@ -327,14 +473,12 @@ def main() -> int:
     import numpy as np
 
     from pathtracer_tpu_torch import __main__ as cli
-    from pathtracer_tpu_torch.config import K_SHADOW_T_MIN, RenderConfig
+    from pathtracer_tpu_torch.config import RenderConfig
     from pathtracer_tpu_torch.core import random as prng
-    from pathtracer_tpu_torch.core.camera import get_rays
     from pathtracer_tpu_torch.io.png import write_png
     from pathtracer_tpu_torch.ops import intersect, tensor_sweep
     from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
     from pathtracer_tpu_torch.presets import combined_scene, get_preset
-    from pathtracer_tpu_torch.render import lights
     from pathtracer_tpu_torch.render.renderer import (CLUSTER_K,
                                                       make_renderer)
     from pathtracer_tpu_torch.scene import materials
@@ -367,21 +511,13 @@ def main() -> int:
         if name == "cluster_march" and any(st or ld for _, _, st, ld
                                            in summary):
             fail("the march kernel spills (ptxas above)")
-    print(f"kernel parameters: dense sweep {pallas_sweep.SWEEP_PARAMS}, "
-          f"window sweep {cluster_sweep.WINDOW_PARAMS}")
-
-    def camera_wavefront(cam, n, seed):
-        u = prng.uniform(prng.fold_in(prng.PRNGKey(seed), 1), (4, n), dev)
-        o, d, _ = get_rays(cam, u[0], u[1], u[2], u[3],
-                           torch.zeros(n, device=dev))
-        return o, d
 
     # 3a. the cluster march against its twin
     scene, cam = get_world("bunny", device=dev)
     ct = build_cluster_tables(scene, K=CLUSTER_K)
     prim_type = ct.scene.prim_type.cpu().numpy()
     key = prng.PRNGKey(0)
-    o_cam, d_cam = camera_wavefront(cam, RAYS, 0)
+    o_cam, d_cam = camera_wavefront(dev, cam, RAYS, 0)
     # one bounce: shade the camera hits, dead lanes get d = 0
     idx, _, valid = cluster_sweep.cluster_march(ct, o_cam, d_cam, T_MIN)
     rec = intersect.hit_records_from_prims(ct.scene, idx, o_cam, d_cam,
@@ -435,30 +571,11 @@ def main() -> int:
               f"({b_by}, {ops / 1e9:.4f} GFLOP) [{card}]")
 
     # 3b. the dense sweep against its twin, and the tensor route
-    tri_scene, tri_cam = get_world("triangle", device=dev)
-    cor_scene, cor_cam, _ = get_preset("cornell-full", device=dev)
-    o_c, d_c = camera_wavefront(cor_cam, CORNELL_RAYS, 2)
-    cor_tables = tensor_sweep.pack_sweep_tables(
-        cor_scene, tile=pallas_sweep.DEF_PRIM_TILE)
-    idx, _, valid = pallas_sweep.pallas_closest(cor_tables, o_c, d_c, T_MIN)
-    rec = intersect.hit_records_from_prims(cor_scene, idx, o_c, d_c, T_MIN,
-                                           intersect.BIG_T, valid)
-    u_l = prng.uniform(prng.fold_in(prng.PRNGKey(3), 1), (CORNELL_RAYS, 3),
-                       dev)
-    point, _, _, _ = lights.sample_lights(cor_scene, u_l)
-    o_s = rec.p + T_MIN * rec.normal
-    d_s = torch.where(valid[:, None], point - o_s, 0.0)
-    o_t, d_t = camera_wavefront(tri_cam, TRI_RAYS, 1)
     sweep_err = 0.0
     sweep = {}
-    for name, sc_, o, d, t_min in (
-            ("triangle camera", tri_scene, o_t, d_t, T_MIN),
-            ("cornell-full camera", cor_scene, o_c, d_c, T_MIN),
-            ("cornell-full shadow", cor_scene, o_s, d_s, K_SHADOW_T_MIN)):
-        tables = tensor_sweep.pack_sweep_tables(
-            sc_, tile=pallas_sweep.DEF_PRIM_TILE)
-        kt = pallas_sweep.kernel_tables(tables)
-        args = pallas_sweep.sweep_inputs(kt, o, d, t_min)
+    for name, sc_, tables, o, d, t_min in dense_wavefronts(dev):
+        args = pallas_sweep.sweep_inputs(pallas_sweep.kernel_tables(tables),
+                                         o, d, t_min)
         kernel = pallas_sweep.sweep(*args)
         torch.cuda.synchronize()
         twin = pallas_sweep.sweep_reference(*args)
@@ -475,8 +592,8 @@ def main() -> int:
         full_ops = r * float(OPS_SPHERE_PAIR * n_sph + OPS_TRI_PAIR * n_tri)
         ops = sum(needed_ops(torch, args[0], args[1],
                              *range_block(args[2][i], args[3][i], lo, hi))
-                  for i, (lo, hi) in enumerate(args[5].tolist()) if hi > lo)
-        b_ms, b_by = bound(nbytes(*args[:6], *kernel), ops)
+                  for i, (lo, hi) in enumerate(args[4].tolist()) if hi > lo)
+        b_ms, b_by = bound(nbytes(*args, *kernel), ops)
         ms = cuda_ms(lambda: pallas_sweep.sweep(*args), torch)
         plain_ms = cuda_ms(lambda: pallas_sweep.sweep_reference(*args),
                            torch)
@@ -495,19 +612,7 @@ def main() -> int:
     # full-width fallback over every chunk
     ct128 = build_cluster_tables(scene, K=ROUNDS_K)
     prim128 = ct128.scene.prim_type.cpu().numpy()
-    with mock.patch.object(cluster_sweep, "window_sweep",
-                           wraps=cluster_sweep.window_sweep) as spy:
-        cluster_sweep.cluster_closest(ct128, o_cam, d_cam, T_MIN)
-    captured = [call.args for call in spy.call_args_list]
-    kinds = window_kinds([c[9] for c in captured], ct128.C_reg)
-    if len(captured) < 2 or kinds[0] != "residual" or kinds[1] != "round 1":
-        fail(f"rounds query: expected a W=1 residual pass and a W=4 round, "
-             f"got widths {[c[9] for c in captured]}")
-    res_args = captured[0]
-    n_chunks = res_args[2].shape[0]
-    zeros = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
-    fb_args = res_args[:2] + (zeros, zeros) + res_args[4:9] + (
-        ct128.C_reg,) + res_args[10:]
+    launches = rounds_launches(ct128, o_cam, d_cam)
     C_tot = ct128.cols.shape[0]
     real128 = real_rows(ct128, scene)
     sph128 = ct128.is_sphere.view(C_tot, ROUNDS_K) != 0
@@ -517,8 +622,8 @@ def main() -> int:
     window = {}
     query_ms = query_bound = 0.0
     timed_plain = ("residual", "round 1", "fallback, all chunks")
-    for name, args in list(zip(kinds, captured)) + [
-            ("fallback, all chunks", fb_args)]:
+    for name, args in launches:
+        w = named(cluster_sweep.window_sweep, args)
         kernel = cluster_sweep.window_sweep(*args)
         torch.cuda.synchronize()
         twin = cluster_sweep.window_reference(*args)
@@ -530,13 +635,14 @@ def main() -> int:
         window_err = max(window_err, err)
         # operations: every swept chunk's W clusters, each real prim by its
         # type
-        starts, skips, W = args[2], args[3], args[9]
+        starts, skips, W = w["starts"], w["skips"], w["W"]
+        n_chunks = starts.shape[0]
         swept = skips == 0
         c = (starts[swept].long()[:, None]
              + torch.arange(W, device=dev)[None, :])
-        full_ops = args[11] * float(ops_cluster[c].sum())
-        ops = window_needed_ops(torch, args)
-        b_ms, b_by = bound(nbytes(*args[:8], *kernel), ops)
+        full_ops = w["ray_tile"] * float(ops_cluster[c].sum())
+        ops = window_needed_ops(torch, w)
+        b_ms, b_by = bound(nbytes(*args, *kernel), ops)
         ms = cuda_ms(lambda: cluster_sweep.window_sweep(*args), torch)
         plain_ms = (cuda_ms(lambda: cluster_sweep.window_reference(*args),
                             torch) if name in timed_plain else None)
@@ -551,7 +657,7 @@ def main() -> int:
               f"{err:.3g}): kernel {ms:.4f} ms{plain}, bound {b_ms:.4f} ms "
               f"({b_by}, {ops / 1e9:.4f} GFLOP needed of "
               f"{full_ops / 1e9:.4f} in full) [{card}]")
-    print(f"window sweep, one rounds query ({len(captured)} launches): "
+    print(f"window sweep, one rounds query ({len(launches) - 1} launches): "
           f"kernel {query_ms:.4f} ms, bound {query_bound:.4f} ms [{card}]")
 
     # 4. the main paths through the CLI's code path
@@ -609,10 +715,12 @@ def main() -> int:
     mean = check_image("cornell-full", img_np, (256, 256, 3), 0.05, 0.9)
     report("cornell-full", seconds, cfg, stats, counts, mean)
 
+    def triangle_argv(spp):
+        return ["--scene", "triangle", "--width", "800", "--height", "450",
+                "--spp", str(spp), "--max-depth", "50", "--accel", "pallas",
+                "--ray-chunk", str(TRI_RAYS)]
     img_np, seconds, cfg, stats, counts = run_cli(
-        ["--scene", "triangle", "--width", "800", "--height", "450",
-         "--spp", str(TRIANGLE_SPP), "--max-depth", "50", "--accel",
-         "pallas", "--ray-chunk", str(TRI_RAYS)],
+        triangle_argv(TRIANGLE_SPP),
         os.path.join(out, "chip_smoke_triangle.png"))
     triangle_launches = counts[1]
     if triangle_launches <= 0:
@@ -624,9 +732,10 @@ def main() -> int:
     # its window launches are counted by kind (the width of each)
     widths = []
     window_sweep = cluster_sweep.window_sweep
+    w_at = list(inspect.signature(window_sweep).parameters).index("W")
 
     def counting(*args, **kw):
-        widths.append(args[9])
+        widths.append(args[w_at])
         return window_sweep(*args, **kw)
     with mock.patch.object(cluster_sweep, "window_sweep", counting):
         img_np, seconds, cfg, stats, counts = run_cli(
@@ -650,7 +759,12 @@ def main() -> int:
           f"1e-4, mean |diff| {diff.mean():.3g}")
     if close < 0.99 or diff.mean() > 1e-3:
         fail("the rounds bunny image disagrees with the march bunny image")
-    profile_rounds(cli, bunny_argv, card, torch)
+    # 1 spp: the profiler's summary of a render's ~300,000 kernel launches
+    # per spp costs more host time than the render itself
+    profile_render(cli, "triangle world at 1 spp", triangle_argv(1),
+                   "dense_sweep_kernel", card, torch)
+    profile_render(cli, "rounds bunny", bunny_argv, "window_sweep_kernel",
+                   card, torch, ROUNDS_ENV)
 
     # 5. small renders: card vs CPU twins
     def card_vs_cpu(name, make, cfg, lo, env=None):

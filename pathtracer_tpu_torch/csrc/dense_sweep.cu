@@ -5,12 +5,13 @@
 // (a Pallas kernel launched by `pallas_closest`). It computes the same
 // function, not the same blocks. The TPU kernel ran a (ray tiles x prim
 // tiles) grid whose prim axis was sequential, carrying (t, index) in its
-// output block from one prim tile to the next. Here a block owns lanes x RT
-// rays (each thread RT of them, in registers) and walks the real rows
-// [lo, hi) of every prim tile (`ranges`; the tables' padding rows are
-// invalid and never hit), staging them slice at a time into shared memory
-// as 192-byte records (sweep_common.cuh). The block's threads form G groups;
-// group g sweeps every G-th staged primitive, and the groups' partial
+// output block from one prim tile to the next. Here a block owns kLanes x
+// kRT rays (each thread kRT of them, in registers) and walks only the real
+// rows [lo, hi) of every prim tile (`ranges`; the padding rows after them
+// are all-zero triangles, det == 0, which never hit), staging them a slice
+// at a time into shared memory as 192-byte records (sweep_common.cuh). The
+// block's threads form kGroups groups; group g sweeps every kGroups-th
+// staged primitive, and the groups' partial
 // results are merged at the end by the rule that gives the TPU kernel's
 // first minimum (lowest index on a tie in t). Threads past the ragged end
 // of the wavefront help stage but sweep and write nothing, so the caller
@@ -29,12 +30,14 @@
 // thread reads 12 broadcast words per primitive and uses them for RT rays,
 // a sphere forms two scalars, a triangle three (the fourth and the t tests
 // only for the rare ray that passes the barycentric tests), and only real
-// rows are swept. At rt 2 the chosen build issues about 55 instructions per
-// sphere pair and 98 per triangle pair (its SASS), so issue, not shared
-// memory, is the limit. The tensor cores stay unused: they would need
-// split-precision products and give up the bit-equality with the twin.
-// The parameters (rt, groups, lanes, slice, cp.async) are chosen by
-// measurement, in ops/pallas_sweep.py (SWEEP_PARAMS).
+// rows are swept. The parameters are constants, chosen on an H100 (PERF.md):
+// kRT = 2 rays per thread, kGroups = 4 groups of kLanes = 128 threads (512
+// threads, 256 rays per block), kSlice = 64 prims per staged run, copied
+// with plain loads (a cp.async double buffer gained nothing here). This
+// build issues about 55 instructions per sphere pair and 98 per triangle
+// pair (its SASS), so issue, not shared memory, is the limit. The tensor
+// cores stay unused: they would need split-precision products and give up
+// the bit-equality with the twin.
 
 #include <cassert>
 
@@ -48,28 +51,34 @@ using pt_sweep::kBig;
 using pt_sweep::kFeat;
 using pt_sweep::kOuts;
 
-template <int RT, bool kAsync, bool kTyped>
-__global__ void __launch_bounds__(pt_sweep::kMaxThreads) dense_sweep_kernel(
+constexpr int kRT = 2;
+constexpr int kGroups = 4;
+constexpr int kLanes = 128;
+constexpr int kSlice = 64;
+constexpr int kThreads = kGroups * kLanes;
+constexpr size_t kSmem =
+    pt_sweep::sweep_smem_bytes(1, kSlice, kGroups, kLanes, kRT);
+static_assert(kThreads <= pt_sweep::kMaxThreads, "block too large");
+static_assert(kSmem <= 48 * 1024, "needs the dynamic shared memory opt-in");
+
+__global__ void __launch_bounds__(kThreads) dense_sweep_kernel(
     const float* __restrict__ phi, const float* __restrict__ a, int n_rays,
     const float* __restrict__ cols, const int* __restrict__ is_sphere,
-    const int* __restrict__ valid_row, const int* __restrict__ ranges,
-    int n_tiles, int tile, float t_min, float t_max, int lanes, int slice,
-    float* __restrict__ t_out, int* __restrict__ best_out) {
+    const int* __restrict__ ranges, int n_tiles, int tile, float t_min,
+    float t_max, float* __restrict__ t_out, int* __restrict__ best_out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int n_buf = kAsync ? 2 : 1;
 
   const int tid = threadIdx.x;
-  const int g = tid / lanes;
-  const int j = tid - g * lanes;
-  const int G = blockDim.x / lanes;
-  const long long r0 = static_cast<long long>(blockIdx.x) * lanes * RT;
+  const int g = tid / kLanes;
+  const int j = tid - g * kLanes;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kLanes * kRT;
 
-  pt_sweep::RayTile<RT> rt;
+  pt_sweep::RayTile<kRT> rt;
   bool any_live = false;
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const long long r = r0 + j + i * lanes;
+  for (int i = 0; i < kRT; ++i) {
+    const long long r = r0 + j + i * kLanes;
     const bool live = r < n_rays;
     pt_sweep::load_ray(rt, i, phi, a, r, live);
     any_live = any_live || live;
@@ -82,32 +91,29 @@ __global__ void __launch_bounds__(pt_sweep::kMaxThreads) dense_sweep_kernel(
     const float* cols_t = cols + static_cast<long long>(t) * kFeat * kOuts *
                                      tile;
     const int* sph_t = is_sphere + static_cast<long long>(t) * tile;
-    const int* valid_t = valid_row + static_cast<long long>(t) * tile;
-    pt_sweep::run_pipeline<kAsync>(
-        (hi - lo + slice - 1) / slice,
+    pt_sweep::run_pipeline<false>(
+        (hi - lo + kSlice - 1) / kSlice,
         [&](int r, int b) {
-          const int s = lo + r * slice;
-          pt_sweep::stage_records<kAsync>(
-              cols_t, sph_t, valid_t, tile, s, min(slice, hi - s),
-              pt_sweep::run_buf(smem, n_buf, slice, b));
+          const int s = lo + r * kSlice;
+          pt_sweep::stage_records<false>(
+              cols_t, sph_t, tile, s, min(kSlice, hi - s),
+              pt_sweep::run_buf(smem, 1, kSlice, b));
         },
         [&](int r, int b) {
           if (!any_live) return;
-          const int s = lo + r * slice;
-          pt_sweep::sweep_records<RT, kTyped>(
-              rt, pt_sweep::run_buf(smem, n_buf, slice, b), g,
-              min(slice, hi - s), G, t * tile + s, t_min, t_max);
+          const int s = lo + r * kSlice;
+          pt_sweep::sweep_records<kRT>(
+              rt, pt_sweep::run_buf(smem, 1, kSlice, b), g,
+              min(kSlice, hi - s), kGroups, t * tile + s, t_min, t_max);
         });
   }
-  if (G > 1) {
-    float* s_t = pt_sweep::merge_t(smem, n_buf, slice);
-    pt_sweep::merge_groups(rt, G, g, j, lanes, s_t,
-                           reinterpret_cast<int*>(s_t + G * lanes * RT));
-    if (g != 0) return;
-  }
+  float* s_t = pt_sweep::merge_t(smem, 1, kSlice);
+  pt_sweep::merge_groups(rt, kGroups, g, j, kLanes, s_t,
+                         reinterpret_cast<int*>(s_t + kThreads * kRT));
+  if (g != 0) return;
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const long long r = r0 + j + i * lanes;
+  for (int i = 0; i < kRT; ++i) {
+    const long long r = r0 + j + i * kLanes;
     if (r < n_rays) {
       t_out[r] = rt.best[i].t;
       best_out[r] = rt.best[i].idx;
@@ -115,69 +121,28 @@ __global__ void __launch_bounds__(pt_sweep::kMaxThreads) dense_sweep_kernel(
   }
 }
 
-template <int RT, bool kAsync, bool kTyped>
-int launch(const float* phi, const float* a, int n_rays, const float* cols,
-           const int* is_sphere, const int* valid_row, const int* ranges,
-           int n_tiles, int tile, float t_min, float t_max, float* t_out,
-           int* best_out, int groups, int lanes, int slice,
-           cudaStream_t stream) {
-  const size_t smem =
-      pt_sweep::sweep_smem_bytes(kAsync ? 2 : 1, slice, groups, lanes, RT);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dense_sweep_kernel<RT, kAsync, kTyped>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long per_block = static_cast<long long>(lanes) * RT;
-  const int n_blocks = static_cast<int>((n_rays + per_block - 1) / per_block);
-  dense_sweep_kernel<RT, kAsync, kTyped>
-      <<<n_blocks, lanes * groups, smem, stream>>>(
-          phi, a, n_rays, cols, is_sphere, valid_row, ranges, n_tiles, tile,
-          t_min, t_max, lanes, slice, t_out, best_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Launches the sweep on `stream`; returns the cudaError_t of the launch (0 on
-// success, cudaErrorInvalidValue for parameters it does not take). Shapes:
-// phi (n_rays, 12); a, t_out, best_out (n_rays,); cols (n_tiles, 12, 4 *
-// tile); is_sphere, valid_row (n_tiles, tile); ranges (n_tiles, 2), the rows
-// [lo, hi) of each tile that are swept (asserted on the device to lie in
-// the tile). best_out is -1 where no primitive is hit. Parameters: rt rays
-// per thread (1, 2 or 4), `groups` groups of `lanes` threads per block
-// (lanes a multiple of 32, lanes * groups <= 512), `slice` prims staged per
-// run, flags bit 0: cp.async double buffer, bit 1: form all four pair
-// scalars of every primitive and run the full epilogues (rt 1, no double
-// buffer; for measurement only).
+// success, cudaErrorInvalidValue for shapes it does not take). Shapes: phi
+// (n_rays, 12); a, t_out, best_out (n_rays,); cols (n_tiles, 12, 4 * tile);
+// is_sphere (n_tiles, tile); ranges (n_tiles, 2), the rows [lo, hi) of each
+// tile that are swept (asserted on the device to lie in the tile). best_out
+// is -1 where no primitive is hit.
 extern "C" int dense_sweep_launch(const float* phi, const float* a, int n_rays,
                                   const float* cols, const int* is_sphere,
-                                  const int* valid_row, const int* ranges,
-                                  int n_tiles, int tile, float t_min,
-                                  float t_max, float* t_out, int* best_out,
-                                  int rt, int groups, int lanes, int slice,
-                                  int flags, void* stream) {
-  if (tile <= 0 || n_tiles <= 0 || lanes <= 0 || lanes % 32 != 0 ||
-      groups <= 0 || lanes * groups > pt_sweep::kMaxThreads || slice <= 0) {
+                                  const int* ranges, int n_tiles, int tile,
+                                  float t_min, float t_max, float* t_out,
+                                  int* best_out, void* stream) {
+  if (tile <= 0 || n_tiles <= 0 || n_rays < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_rays == 0) return 0;
-  const bool async = (flags & 1) != 0;
-  const bool typed = (flags & 2) == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PT_DENSE_CASE(R, A, T)                                              \
-  if (rt == R && async == A && typed == T)                                  \
-    return launch<R, A, T>(phi, a, n_rays, cols, is_sphere, valid_row,      \
-                           ranges, n_tiles, tile, t_min, t_max, t_out,      \
-                           best_out, groups, lanes, slice, s);
-  PT_DENSE_CASE(1, false, true)
-  PT_DENSE_CASE(2, false, true)
-  PT_DENSE_CASE(4, false, true)
-  PT_DENSE_CASE(1, true, true)
-  PT_DENSE_CASE(2, true, true)
-  PT_DENSE_CASE(4, true, true)
-  PT_DENSE_CASE(1, false, false)
-#undef PT_DENSE_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  constexpr long long per_block = static_cast<long long>(kLanes) * kRT;
+  const int n_blocks = static_cast<int>((n_rays + per_block - 1) / per_block);
+  dense_sweep_kernel<<<n_blocks, kThreads, kSmem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      phi, a, n_rays, cols, is_sphere, ranges, n_tiles, tile, t_min, t_max,
+      t_out, best_out);
+  return static_cast<int>(cudaGetLastError());
 }

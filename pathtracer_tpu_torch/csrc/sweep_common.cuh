@@ -134,11 +134,12 @@ __device__ __forceinline__ Best sweep_cluster(
 //   tables needs 48 scalar loads. Records are kRec = 52 floats apart: the
 //   staging loop gives a warp 8 primitives x 4 outputs of one feature
 //   (four 32-byte global segments) and the stride of 52 puts their 32
-//   shared stores in 32 distinct banks.
-// * Types. A primitive's kind comes from its own is_sphere and valid_row
-//   rows; the branch is uniform across the warp. A sphere forms its two
-//   pair scalars, a triangle three, and the rest of the arithmetic runs
-//   only where the result can depend on it (sweep_records).
+//   shared stores in 32 distinct banks. Only the real rows of a tile or
+//   cluster are staged (the caller's range), so no row needs a mask.
+// * Types. A primitive's kind comes from its own is_sphere row; the branch
+//   is uniform across the warp. A sphere forms its two pair scalars, a
+//   triangle three, and the rest of the arithmetic runs only where the
+//   result can depend on it (sweep_records).
 // * Rays. Each thread carries RT rays in registers, so one record load
 //   serves RT pair evaluations.
 // * Groups. The block's threads form G groups of `lanes` threads (lanes a
@@ -174,11 +175,10 @@ __device__ __forceinline__ void cp_async_wait() {
 struct RunBuf {
   float* rec;  // cap * kRec floats, 16-byte aligned
   int* sph;    // cap
-  int* valid;  // cap
 };
 
 // Stages rows [lo, lo + n) of the column block `cols` (feature f of output
-// o of row k at cols[(f * kOuts + o) * width + k]) and of the masks into
+// o of row k at cols[(f * kOuts + o) * width + k]) and of is_sphere into
 // `buf`, every thread of the block striding; with kAsync through cp.async
 // (the caller commits and waits), else with plain loads and stores (the
 // caller synchronises before reading). The stride is a signed int (see
@@ -186,7 +186,7 @@ struct RunBuf {
 template <bool kAsync>
 __device__ __forceinline__ void stage_records(
     const float* __restrict__ cols, const int* __restrict__ is_sphere,
-    const int* __restrict__ valid_row, int width, int lo, int n, RunBuf buf) {
+    int width, int lo, int n, RunBuf buf) {
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   // i -> (prim block kb, feature f, output o, prim kk in block): 8 prims x
@@ -211,10 +211,8 @@ __device__ __forceinline__ void stage_records(
   for (int i = tid; i < n; i += nthr) {
     if (kAsync) {
       cp_async4(buf.sph + i, is_sphere + lo + i);
-      cp_async4(buf.valid + i, valid_row + lo + i);
     } else {
       buf.sph[i] = is_sphere[lo + i];
-      buf.valid[i] = valid_row[lo + i];
     }
   }
 }
@@ -282,10 +280,9 @@ __device__ __forceinline__ void load_ray(RayTile<RT>& rt, int i,
 // `buf` in ascending order; global index base + k. Hits in [t_min, t_max]
 // by the epilogues above, merged with a strict `<`.
 //
-// With kTyped, each value is formed only where the result can still depend
-// on it, by the same operations in the same order as in sphere_hit and
-// triangle_hit, so the result is theirs for any input (NaN and inf
-// included):
+// Each value is formed only where the result can still depend on it, by
+// the same operations in the same order as in sphere_hit and triangle_hit,
+// so the result is theirs for any input (NaN and inf included):
 // * a sphere forms B and C0 and its discriminant; the roots and the range
 //   tests run only where disc >= 0 (sphere_hit's first condition);
 // * a triangle forms det, b1 * det and b2 * det first, and t * det (its
@@ -294,18 +291,14 @@ __device__ __forceinline__ void load_ray(RayTile<RT>& rt, int i,
 //   != 0, b1 > 0, b2 > 0, b1 + b2 < 1. On the triangle world's camera
 //   rays, under 2% of the warps have such a ray for a given triangle, and
 //   under 10% a ray with disc >= 0 for a given sphere.
-// kTyped false forms all four pair scalars of every primitive and runs the
-// full epilogues, as the first kernels did (kept to measure the layout
-// alone).
-template <int RT, bool kTyped>
+template <int RT>
 __device__ __forceinline__ void sweep_records(RayTile<RT>& rt, RunBuf buf,
                                               int k0, int n, int step,
                                               int base, float t_min,
                                               float t_max) {
   for (int k = k0; k < n; k += step) {
-    if (buf.valid[k] == 0) continue;
     const float* rec = buf.rec + k * kRec;
-    if (kTyped && buf.sph[k] != 0) {
+    if (buf.sph[k] != 0) {
       float S0[RT], S1[RT];
       {
         const float2 v = *reinterpret_cast<const float2*>(rec);
@@ -341,7 +334,7 @@ __device__ __forceinline__ void sweep_records(RayTile<RT>& rt, RunBuf buf,
           }
         }
       }
-    } else if (kTyped) {
+    } else {
       // det, b1 * det, b2 * det: outputs 0, 2, 3 of the record
       float D[RT], B1[RT], B2[RT];
       {
@@ -397,43 +390,6 @@ __device__ __forceinline__ void sweep_records(RayTile<RT>& rt, RunBuf buf,
           }
         }
       }
-    } else {
-      float S[RT][kOuts];
-      {
-        const float4 v = *reinterpret_cast<const float4*>(rec);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          S[i][0] = rt.p[i][0] * v.x;
-          S[i][1] = rt.p[i][0] * v.y;
-          S[i][2] = rt.p[i][0] * v.z;
-          S[i][3] = rt.p[i][0] * v.w;
-        }
-      }
-#pragma unroll
-      for (int f = 1; f < kFeat; ++f) {
-        const float4 v = *reinterpret_cast<const float4*>(rec + f * kOuts);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          S[i][0] = S[i][0] + rt.p[i][f] * v.x;
-          S[i][1] = S[i][1] + rt.p[i][f] * v.y;
-          S[i][2] = S[i][2] + rt.p[i][f] * v.z;
-          S[i][3] = S[i][3] + rt.p[i][f] * v.w;
-        }
-      }
-      const bool sph = buf.sph[k] != 0;
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        float t;
-        const bool hit =
-            sph ? sphere_hit(S[i][0], S[i][1], rt.a[i], rt.inv_a[i], t_min,
-                             t_max, &t)
-                : triangle_hit(S[i][0], S[i][1], S[i][2], S[i][3], t_min,
-                               t_max, &t);
-        if (hit && t < rt.best[i].t) {
-          rt.best[i].t = t;
-          rt.best[i].idx = base + k;
-        }
-      }
     }
   }
 }
@@ -471,24 +427,24 @@ __device__ __forceinline__ void merge_groups(RayTile<RT>& rt, int G, int g,
 }
 
 // Dynamic shared memory of a sweep kernel, in this order: n_buf run
-// buffers' records (16-byte aligned at the start), their masks, and the
-// merge arrays s_t, s_i of G * lanes * RT entries each where G > 1.
-inline size_t sweep_smem_bytes(int n_buf, int cap, int G, int lanes,
-                               int RT) {
-  return static_cast<size_t>(n_buf) * cap * (kRec + 2) * 4 +
+// buffers' records (16-byte aligned at the start), their sphere masks,
+// and the merge arrays s_t, s_i of G * lanes * RT entries each where
+// G > 1.
+constexpr size_t sweep_smem_bytes(int n_buf, int cap, int G, int lanes,
+                                  int RT) {
+  return static_cast<size_t>(n_buf) * cap * (kRec + 1) * 4 +
          (G > 1 ? static_cast<size_t>(G) * lanes * RT * 8 : 0);
 }
 
 __device__ __forceinline__ RunBuf run_buf(float* smem, int n_buf, int cap,
                                           int b) {
   int* masks = reinterpret_cast<int*>(smem + n_buf * cap * kRec);
-  return RunBuf{smem + b * cap * kRec, masks + 2 * b * cap,
-                masks + (2 * b + 1) * cap};
+  return RunBuf{smem + b * cap * kRec, masks + b * cap};
 }
 
 // The merge arrays behind the run buffers.
 __device__ __forceinline__ float* merge_t(float* smem, int n_buf, int cap) {
-  return smem + n_buf * cap * (kRec + 2);
+  return smem + n_buf * cap * (kRec + 1);
 }
 
 // Maximum threads of a sweep-core block (the launchers check it).

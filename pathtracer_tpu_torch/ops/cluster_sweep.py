@@ -66,20 +66,13 @@ _ENTRY_MARGIN = 1e-4
 MARCH_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
-# Parameters of the CUDA window kernel (chosen on the card, PERF.md): rays
-# per thread, thread groups per chunk (at most what fits in 512 threads),
-# and flags (bit 0: a cp.async double buffer; bit 1: the full arithmetic
-# for every primitive, for measurement only). See csrc/window_sweep.cu.
-WINDOW_PARAMS = dict(rt=2, groups=8, flags=1)
-
 _MARCH_PROTOTYPES = {"cluster_march_launch": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p] * 4)}
 _WINDOW_PROTOTYPES = {"window_sweep_launch": (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-    + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p])}
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3)}
 
 
 def _cull_T(o, d, active, cmin, cmax, t_min):
@@ -353,8 +346,8 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
     return torch.where(found, best, 0), t_best, found
 
 
-def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
-                     ranges, K: int, W: int, t_min: float, ray_tile: int):
+def window_reference(phi, a, starts, skips, cols, is_sphere, ranges,
+                     K: int, W: int, t_min: float, ray_tile: int):
     """Plain PyTorch twin of the CUDA window kernel: same inputs, same
     (t_best (R,) f32, best (R,) int32), ``best`` -1 where nothing is hit.
 
@@ -388,7 +381,7 @@ def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
         for j in range(W):
             c = start + j
             rng = ranges[c]
-            swept = ((valid_row[c] != 0) & (k[None, :] >= rng[:, 0:1])
+            swept = ((k[None, :] >= rng[:, 0:1])
                      & (k[None, :] < rng[:, 1:2]))            # (L, K)
             S = contract(P, cols[c])                     # (L, T, OUTS*K)
             t_eff = _epilogue(S[..., 0:K], S[..., K:2 * K],
@@ -406,10 +399,9 @@ def window_reference(phi, a, starts, skips, cols, is_sphere, valid_row,
     return t_acc.reshape(-1), b_acc.reshape(-1)
 
 
-def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
-                 K, W, t_min, ray_tile, params=None):
+def _window_cuda(phi, a, starts, skips, cols, is_sphere, ranges, K, W,
+                 t_min, ray_tile):
     global WINDOW_LAUNCHES
-    p = WINDOW_PARAMS if params is None else params
     n_chunks = starts.shape[0]
     R = n_chunks * ray_tile
     C_tot = cols.shape[0]
@@ -417,13 +409,6 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
         raise ValueError("ray_tile must be a multiple of 32 up to 1024")
     if W < 1:
         raise ValueError(f"window width W must be positive, got {W}")
-    # a group: ceil(ray_tile / rt) threads in whole warps; as many groups
-    # as fit in 512 threads, up to the chosen number
-    per_group = -(-ray_tile // p["rt"])
-    lanes = -(-per_group // 32) * 32
-    if lanes > 512:
-        raise ValueError(f"ray_tile {ray_tile} needs rt >= 2")
-    groups = max(1, min(p["groups"], 512 // lanes))
     for name, x, dtype, shape in (
             ("phi", phi, torch.float32, (R, FEAT)),
             ("a", a, torch.float32, (R,)),
@@ -431,7 +416,6 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
             ("skips", skips, torch.int32, (n_chunks,)),
             ("cols", cols, torch.float32, (C_tot, FEAT, OUTS * K)),
             ("is_sphere", is_sphere, torch.int32, (C_tot, K)),
-            ("valid_row", valid_row, torch.int32, (C_tot, K)),
             ("ranges", ranges, torch.int32, (C_tot, 2))):
         _cuda_build.check_arg(x, name, dtype, shape, phi.device)
     fn = _cuda_build.load("window_sweep",
@@ -441,9 +425,8 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
     stream = torch.cuda.current_stream(phi.device).cuda_stream
     err = fn(phi.data_ptr(), a.data_ptr(), starts.data_ptr(),
              skips.data_ptr(), n_chunks, ray_tile, W, C_tot, cols.data_ptr(),
-             is_sphere.data_ptr(), valid_row.data_ptr(), ranges.data_ptr(),
-             K, t_min, t_out.data_ptr(), best.data_ptr(), p["rt"], groups,
-             p["flags"], stream)
+             is_sphere.data_ptr(), ranges.data_ptr(), K, t_min,
+             t_out.data_ptr(), best.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"window_sweep kernel launch failed: CUDA error "
                            f"{err}")
@@ -451,12 +434,12 @@ def _window_cuda(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
     return t_out, best
 
 
-def window_sweep(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
-                 K: int, W: int, t_min: float, ray_tile: int):
+def window_sweep(phi, a, starts, skips, cols, is_sphere, ranges, K: int,
+                 W: int, t_min: float, ray_tile: int):
     """The window sweep: the CUDA kernel for CUDA tensors, the plain twin
     for CPU tensors. phi (R, 12), a = |d|^2 (R,), starts / skips
-    (R / ray_tile,) int32, cols (C_tot, 12, 4K), is_sphere / valid_row
-    (C_tot, K) int32, ranges (C_tot, 2) int32: the rows [lo, hi) of each
+    (R / ray_tile,) int32, cols (C_tot, 12, 4K), is_sphere (C_tot, K)
+    int32, ranges (C_tot, 2) int32: the rows [lo, hi) of each
     cluster to sweep (``ClusterTables.ranges``). Returns (t_best (R,) f32,
     best (R,) int32), ``best`` the winner's c * K + k, -1 where nothing is
     hit.
@@ -467,11 +450,11 @@ def window_sweep(phi, a, starts, skips, cols, is_sphere, valid_row, ranges,
     raises at the stream's next sync (the check costs no host sync per
     launch)."""
     if phi.device.type == "cuda":
-        return _window_cuda(phi, a, starts, skips, cols, is_sphere,
-                            valid_row, ranges, K, W, t_min, ray_tile)
+        return _window_cuda(phi, a, starts, skips, cols, is_sphere, ranges,
+                            K, W, t_min, ray_tile)
     if phi.device.type == "cpu":
         return window_reference(phi, a, starts, skips, cols, is_sphere,
-                                valid_row, ranges, K, W, t_min, ray_tile)
+                                ranges, K, W, t_min, ray_tile)
     raise ValueError(f"no window sweep for device {phi.device}")
 
 
@@ -527,8 +510,7 @@ def cluster_closest(ct: ClusterTables, o, d, t_min,
     active = torch.any(d != 0.0, dim=1)
     active0 = active   # caller order
     t_min = float(t_min)
-    tables = (ct.cols, ct.is_sphere.view(C_tot, K),
-              ct.valid_row.view(C_tot, K), ct.ranges)
+    tables = (ct.cols, ct.is_sphere.view(C_tot, K), ct.ranges)
 
     def window_pass(o_, d_, starts, skips, W_):
         phi = ray_features(o_, d_)

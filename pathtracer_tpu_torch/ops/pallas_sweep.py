@@ -29,24 +29,17 @@ from pathtracer_tpu_torch.scene.scene import Scene
 
 DEF_PRIM_TILE = 1024
 
-# Parameters of the CUDA kernel (chosen on the card, PERF.md): rays per
-# thread, thread groups per block, threads per group, prims staged per run,
-# and flags (bit 0: a cp.async double buffer; bit 1: the full arithmetic
-# for every primitive, for measurement only). See csrc/dense_sweep.cu.
-SWEEP_PARAMS = dict(rt=2, groups=4, lanes=128, slice=64, flags=0)
-
 # Launches of the CUDA sweep kernel in this process (the wrapper adds one per
 # launch and nowhere else); callers reset it to 0 to count a run.
 SWEEP_LAUNCHES = 0
 
 _PROTOTYPES = {"dense_sweep_launch": (
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
-    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p])}
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3)}
 
 
-def sweep_reference(phi, a, cols, is_sphere, valid_row, ranges,
-                    t_min: float, t_max: float):
+def sweep_reference(phi, a, cols, is_sphere, ranges, t_min: float,
+                    t_max: float):
     """Plain PyTorch twin of the CUDA sweep kernel: same inputs, same
     (t_best (R,) f32, best (R,) int32), ``best`` -1 where nothing is hit.
 
@@ -68,26 +61,20 @@ def sweep_reference(phi, a, cols, is_sphere, valid_row, ranges,
                      .reshape(FEAT, OUTS * n))
         t_eff = _epilogue(S[:, 0:n], S[:, n:2 * n], S[:, 2 * n:3 * n],
                           S[:, 3 * n:4 * n], a2, is_sphere[i, lo:hi] != 0,
-                          valid_row[i, lo:hi] != 0, t_min, t_max)
+                          True, t_min, t_max)
         t_best, best = merge_tile(t_eff, i * tile + lo, t_best, best)
     return t_best, best
 
 
-def _sweep_cuda(phi, a, cols, is_sphere, valid_row, ranges, t_min, t_max,
-                params=None):
+def _sweep_cuda(phi, a, cols, is_sphere, ranges, t_min, t_max):
     global SWEEP_LAUNCHES
-    p = SWEEP_PARAMS if params is None else params
     n_tiles, tile = is_sphere.shape
     r = phi.shape[0]
-    if (p["lanes"] % 32 != 0 or not 0 < p["lanes"] * p["groups"] <= 512
-            or p["slice"] <= 0):
-        raise ValueError(f"bad kernel parameters {p}")
     for name, x, dtype, shape in (
             ("phi", phi, torch.float32, (r, FEAT)),
             ("a", a, torch.float32, (r,)),
             ("cols", cols, torch.float32, (n_tiles, FEAT, OUTS * tile)),
             ("is_sphere", is_sphere, torch.int32, (n_tiles, tile)),
-            ("valid_row", valid_row, torch.int32, (n_tiles, tile)),
             ("ranges", ranges, torch.int32, (n_tiles, 2))):
         _cuda_build.check_arg(x, name, dtype, shape, phi.device)
     fn = _cuda_build.load("dense_sweep", _PROTOTYPES).dense_sweep_launch
@@ -95,10 +82,8 @@ def _sweep_cuda(phi, a, cols, is_sphere, valid_row, ranges, t_min, t_max,
     best = torch.empty(r, dtype=torch.int32, device=phi.device)
     stream = torch.cuda.current_stream(phi.device).cuda_stream
     err = fn(phi.data_ptr(), a.data_ptr(), r, cols.data_ptr(),
-             is_sphere.data_ptr(), valid_row.data_ptr(), ranges.data_ptr(),
-             n_tiles, tile, t_min, t_max, t_out.data_ptr(), best.data_ptr(),
-             p["rt"], p["groups"], p["lanes"], p["slice"], p["flags"],
-             stream)
+             is_sphere.data_ptr(), ranges.data_ptr(), n_tiles, tile, t_min,
+             t_max, t_out.data_ptr(), best.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"dense_sweep kernel launch failed: CUDA error "
                            f"{err}")
@@ -106,33 +91,31 @@ def _sweep_cuda(phi, a, cols, is_sphere, valid_row, ranges, t_min, t_max,
     return t_out, best
 
 
-def sweep(phi, a, cols, is_sphere, valid_row, ranges, t_min: float,
-          t_max: float):
+def sweep(phi, a, cols, is_sphere, ranges, t_min: float, t_max: float):
     """The dense sweep: the CUDA kernel for CUDA tensors, the plain twin for
     CPU tensors. phi (R, 12), a = |d|^2 (R,), cols (T, 12, 4*tile),
-    is_sphere / valid_row (T, tile) int32, ranges (T, 2) int32: the rows
-    [lo, hi) of each tile to sweep. Returns (t_best (R,) f32, best (R,)
-    int32), ``best`` -1 where nothing is hit. A range that leaves its tile
-    raises ValueError in the twin and fails a device-side assert in the
-    kernel (PyTorch raises at the next sync)."""
+    is_sphere (T, tile) int32, ranges (T, 2) int32: the rows [lo, hi) of
+    each tile to sweep. Returns (t_best (R,) f32, best (R,) int32),
+    ``best`` -1 where nothing is hit. A range that leaves its tile raises
+    ValueError in the twin and fails a device-side assert in the kernel
+    (PyTorch raises at the next sync)."""
     if phi.device.type == "cuda":
-        return _sweep_cuda(phi, a, cols, is_sphere, valid_row, ranges, t_min,
-                           t_max)
+        return _sweep_cuda(phi, a, cols, is_sphere, ranges, t_min, t_max)
     if phi.device.type == "cpu":
-        return sweep_reference(phi, a, cols, is_sphere, valid_row, ranges,
-                               t_min, t_max)
+        return sweep_reference(phi, a, cols, is_sphere, ranges, t_min, t_max)
     raise ValueError(f"no dense sweep for device {phi.device}")
 
 
 def kernel_tables(tables: SweepTables):
-    """(cols, is_sphere, valid_row, ranges) of ``tables`` as :func:`sweep`
-    takes them: int32 masks, and each tile's valid rows [0, n) as its range
-    (``valid_row`` is a prefix of each tile; ValueError otherwise)."""
+    """(cols, is_sphere, ranges) of ``tables`` as :func:`sweep` takes them:
+    the int32 sphere mask, and each tile's valid rows [0, n) as its range,
+    the only rows swept (``valid_row`` is a prefix of each tile;
+    ValueError otherwise)."""
     ranges = row_ranges(tables.valid_row)
     if bool((ranges[:, 0] != 0).any()):
         raise ValueError("valid_row is not a prefix of each tile")
     return (tables.cols, tables.is_sphere.to(torch.int32).contiguous(),
-            tables.valid_row.to(torch.int32).contiguous(), ranges)
+            ranges)
 
 
 def sweep_inputs(kt, o, d, t_min, t_max=BIG):

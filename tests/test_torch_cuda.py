@@ -9,7 +9,8 @@ installed; the repository's conftest imports jax, hence on a GPU machine:
 Tolerances: the march, those of tests/test_torch_march.py (kernel and twin
 are built to round alike, so they are expected to agree to the bit); the
 dense and window sweeps, which have no stop test and merge ties by the
-twins' rule, are held to the bit, at every kernel parameter set they take.
+twins' rule, are held to the bit, on ragged ray counts, window widths that
+the thread groups do not divide, and ties.
 """
 import os
 import subprocess
@@ -129,19 +130,6 @@ def _dense_scene(name, dev):
     return scene, cam
 
 
-# parameter sets of the sweep kernels besides the chosen ones: rays per
-# thread, groups, and for the dense sweep threads per group and prims per
-# run; flags (1: cp.async double buffer, 2: the full arithmetic for every
-# primitive)
-DENSE_PARAMS = [dict(rt=1, groups=1, lanes=128, slice=64, flags=0),
-                dict(rt=4, groups=3, lanes=32, slice=40, flags=1),
-                dict(rt=2, groups=8, lanes=64, slice=256, flags=1),
-                dict(rt=1, groups=2, lanes=96, slice=8, flags=2)]
-WINDOW_PARAMS = [dict(rt=1, groups=1, flags=0), dict(rt=1, groups=3, flags=1),
-                 dict(rt=4, groups=8, flags=1), dict(rt=2, groups=5, flags=0),
-                 dict(rt=1, groups=4, flags=2)]
-
-
 def _tie_scene(dev):
     """One triangle at rows 0 and 5 (the same triangle twice), spheres
     between and after them: rays through the triangle tie at bit-equal t
@@ -196,27 +184,25 @@ def test_dense_kernel_matches_twin(gpu, name, kind, t_min, n):
         assert (b_k[::5] == -1).all()
 
 
-@pytest.mark.parametrize("params", DENSE_PARAMS)
-@pytest.mark.parametrize("n", [1, 129, 1001, 20000])
-def test_dense_kernel_parameters_match_twin(gpu, params, n):
-    """Every parameter set the kernel takes, on ragged ray counts (not a
-    multiple of rt, of the block or of 128), the triangle world."""
+@pytest.mark.parametrize("n", [1, 129, 255, 257, 1001, 20000])
+def test_dense_kernel_ragged_counts_match_twin(gpu, n):
+    """Ragged ray counts (not a multiple of the kernel's 2 rays per thread,
+    of its 256-ray block or of 128), the triangle world."""
     scene, cam = _dense_scene("triangle", gpu)
     kt = pallas_sweep.kernel_tables(pack_sweep_tables(
         scene, tile=pallas_sweep.DEF_PRIM_TILE))
     args = pallas_sweep.sweep_inputs(kt, *_wavefront("camera", cam, n, gpu),
                                      T_MIN)
-    _assert_bit_equal(pallas_sweep._sweep_cuda(*args, params=params),
+    _assert_bit_equal(pallas_sweep.sweep(*args),
                       pallas_sweep.sweep_reference(*args))
 
 
-@pytest.mark.parametrize("params", [None] + DENSE_PARAMS)
-def test_dense_kernel_tie_goes_to_the_lower_index(gpu, params):
+def test_dense_kernel_tie_goes_to_the_lower_index(gpu):
     scene, o, d = _tie_scene(gpu)
     for tile in (128, 1024):
         kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=tile))
         args = pallas_sweep.sweep_inputs(kt, o, d, T_MIN)
-        got = pallas_sweep._sweep_cuda(*args, params=params)
+        got = pallas_sweep.sweep(*args)
         _assert_bit_equal(got, pallas_sweep.sweep_reference(*args))
         b = got[1].cpu().numpy()
         assert (b == 0).sum() > 100 and not (b == 5).any()
@@ -236,28 +222,18 @@ def test_dense_wrapper_rejects_bad_inputs(gpu):
         with pytest.raises(err):
             pallas_sweep.sweep(*bad)
     # the ranges: dtype, shape and device are checked
-    for bad_r, err in ((args[5].long(), TypeError),
-                       (args[5][:, :1].contiguous(), ValueError),
-                       (torch.cat([args[5], args[5]]), ValueError),
-                       (args[5].cpu(), ValueError)):
+    for bad_r, err in ((args[4].long(), TypeError),
+                       (args[4][:, :1].contiguous(), ValueError),
+                       (torch.cat([args[4], args[4]]), ValueError),
+                       (args[4].cpu(), ValueError)):
         bad = list(args)
-        bad[5] = bad_r
+        bad[4] = bad_r
         with pytest.raises(err):
             pallas_sweep.sweep(*bad)
-    # bad kernel parameters raise before a launch
-    for params in (dict(rt=2, groups=2, lanes=48, slice=64, flags=0),
-                   dict(rt=2, groups=9, lanes=64, slice=64, flags=0),
-                   dict(rt=2, groups=2, lanes=64, slice=0, flags=0)):
-        with pytest.raises(ValueError):
-            pallas_sweep._sweep_cuda(*args, params=params)
-    with pytest.raises(RuntimeError):
-        pallas_sweep._sweep_cuda(*args, params=dict(
-            rt=3, groups=1, lanes=64, slice=64, flags=0))
     # a tile that is not a multiple of the kernel's 64-prim slice
     kt = pallas_sweep.kernel_tables(pack_sweep_tables(scene, tile=640))
     cut = (kt[0][:, :, :4 * 100].contiguous(), kt[1][:, :100].contiguous(),
-           kt[2][:, :100].contiguous())
-    cut = cut + (torch.tensor([[0, 100]], dtype=torch.int32, device=gpu),)
+           torch.tensor([[0, 100]], dtype=torch.int32, device=gpu))
     args = pallas_sweep.sweep_inputs(cut, o, d, T_MIN)
     _assert_bit_equal(pallas_sweep.sweep(*args),
                       pallas_sweep.sweep_reference(*args))
@@ -279,12 +255,12 @@ def test_small_cornell_render_matches_cpu(gpu):
     assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3
 
 
-def _window_args(ct, o, d, kind):
+def _window_args(ct, o, d, kind, ray_tile=128):
     """Arguments of ``window_sweep`` for one launch kind of the rounds
     strategy over the wavefront (o, d), K=128 tables."""
     K, C_reg = ct.K, ct.C_reg
     C_tot = ct.cols.shape[0]
-    n_chunks = o.shape[0] // 128
+    n_chunks = o.shape[0] // ray_tile
     dev = o.device
     phi = ray_features(o, d).contiguous()
     a = vec.dot(d, d)
@@ -292,7 +268,7 @@ def _window_args(ct, o, d, kind):
     active = torch.any(d != 0.0, dim=1)
     zeros = torch.zeros(n_chunks, dtype=torch.int32, device=dev)
     if kind == "residual":
-        dead = torch.all(~active.view(n_chunks, 128), dim=1)
+        dead = torch.all(~active.view(n_chunks, ray_tile), dim=1)
         starts, skips, W = zeros + C_reg, dead.to(torch.int32), 1
     elif kind == "window":
         # a first round: each chunk's nearest touched cluster
@@ -300,7 +276,7 @@ def _window_args(ct, o, d, kind):
         key, _ = cluster_sweep._key_and_resolved(
             entry, torch.zeros_like(entry, dtype=torch.bool),
             torch.full((o.shape[0],), BIG, device=dev))
-        chunk_min = key.view(n_chunks, 128).amin(dim=1)
+        chunk_min = key.view(n_chunks, ray_tile).amin(dim=1)
         W = 4
         starts = torch.clamp(chunk_min, 0, C_reg - W).to(torch.int32)
         skips = (chunk_min >= cluster_sweep._RESOLVED_KEY).to(torch.int32)
@@ -311,8 +287,7 @@ def _window_args(ct, o, d, kind):
     else:   # all skipped
         starts, skips, W = zeros + C_tot, zeros + 1, 4
     return (phi, a, starts.contiguous(), skips.contiguous(), ct.cols,
-            ct.is_sphere.view(C_tot, K), ct.valid_row.view(C_tot, K),
-            ct.ranges, K, W, T_MIN, 128)
+            ct.is_sphere.view(C_tot, K), ct.ranges, K, W, T_MIN, ray_tile)
 
 
 @pytest.mark.parametrize("kind", ["residual", "window", "fallback", "last",
@@ -352,9 +327,9 @@ def test_window_wrapper_rejects_bad_inputs(gpu):
             (1, args[1].cpu(), ValueError),
             (2, args[2].long(), TypeError),
             (0, args[0].t().contiguous().t(), ValueError),
-            (7, args[7].long(), TypeError),
-            (7, args[7][1:].contiguous(), ValueError),
-            (7, args[7].cpu(), ValueError)):
+            (6, args[6].long(), TypeError),
+            (6, args[6][1:].contiguous(), ValueError),
+            (6, args[6].cpu(), ValueError)):
         bad = list(args)
         bad[i] = bad_x
         with pytest.raises(err):
@@ -367,31 +342,32 @@ def test_window_wrapper_rejects_bad_inputs(gpu):
     assert (b == -1).all()
 
 
-@pytest.mark.parametrize("params", WINDOW_PARAMS)
-@pytest.mark.parametrize("W", [1, 3, 4, 5, "C_reg"])
-def test_window_kernel_parameters_match_twin(gpu, params, W):
-    """Every parameter set the kernel takes, on windows of 1, 3, 4, 5 and
-    C_reg clusters (not divisible by the groups), one chunk's window over
-    a cluster whose range is empty, one over the residual tile."""
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 9, "C_reg"])
+@pytest.mark.parametrize("ray_tile", [32, 96, 128, 256, 1024])
+def test_window_kernel_widths_and_tiles_match_twin(gpu, W, ray_tile):
+    """Windows of 1, 3, 4, 5, 9 and C_reg clusters (not divisible by the 8
+    thread groups), chunks of 32 to 1,024 rays (from 8 groups of 32
+    threads to 1 group of 512), one chunk's window over a cluster whose
+    range is empty, one over the residual tile."""
     scene, cam = get_world("bunny", device=gpu)
     ct = build_cluster_tables(scene, K=128)
-    o, d = _wavefront("camera", cam, 2048, gpu)
-    args = list(_window_args(ct, o, d, "window"))
+    n = 2048 // ray_tile * ray_tile
+    o, d = (x[:n] for x in _wavefront("camera", cam, 2048, gpu))
+    args = list(_window_args(ct, o, d, "window", ray_tile))
     C_reg, C_tot = ct.C_reg, ct.cols.shape[0]
     W = C_reg if W == "C_reg" else W
-    args[9] = W
+    args[8] = W
     args[2] = torch.clamp(args[2], 0, C_tot - W).contiguous()
     args[2][0] = C_tot - W
     args[3] = torch.zeros_like(args[3])
     ranges = ct.ranges.clone()
     ranges[int(args[2][1])] = torch.tensor([7, 7])
-    args[7] = ranges
-    _assert_bit_equal(cluster_sweep._window_cuda(*args, params=params),
+    args[6] = ranges
+    _assert_bit_equal(cluster_sweep.window_sweep(*args),
                       cluster_sweep.window_reference(*args))
 
 
-@pytest.mark.parametrize("params", [None] + WINDOW_PARAMS)
-def test_window_kernel_tie_goes_to_the_lower_index(gpu, params):
+def test_window_kernel_tie_goes_to_the_lower_index(gpu):
     scene, o, d = _tie_scene(gpu)
     ct = build_cluster_tables(scene, K=128)
     # the twin triangles' rows in the reordered tables: adjacent, so in
@@ -403,9 +379,9 @@ def test_window_kernel_tie_goes_to_the_lower_index(gpu, params):
     for kind in ("fallback", "last"):
         args = _window_args(ct, o, d, kind)
         if kind == "last":
-            args = args[:2] + (torch.zeros_like(args[2]),) + args[3:9] + (
-                ct.cols.shape[0],) + args[10:]
-        got = cluster_sweep._window_cuda(*args, params=params)
+            args = args[:2] + (torch.zeros_like(args[2]),) + args[3:8] + (
+                ct.cols.shape[0],) + args[9:]
+        got = cluster_sweep.window_sweep(*args)
         _assert_bit_equal(got, cluster_sweep.window_reference(*args))
         b = got[1].cpu().numpy()
         assert (b == int(rows[0])).sum() > 100
@@ -449,7 +425,7 @@ def test_sweep_kernels_assert_ranges_off_the_tables(gpu, kernel):
         call = """
 scene, cam = t.get_world("triangle", device=dev)
 kt = list(t.pallas_sweep.kernel_tables(t.pack_sweep_tables(scene, 1024)))
-kt[3] = kt[3] + 424
+kt[2] = kt[2] + 424
 o, d = t._wavefront("camera", cam, 512, dev)
 t.pallas_sweep.sweep(*t.pallas_sweep.sweep_inputs(kt, o, d, 1e-3))
 """
@@ -459,7 +435,7 @@ scene, cam = t.get_world("bunny", device=dev)
 ct = t.build_cluster_tables(scene, K=128)
 o, d = t._wavefront("camera", cam, 512, dev)
 args = list(t._window_args(ct, o, d, "fallback"))
-args[7] = args[7] + 1
+args[6] = args[6] + 1
 t.cluster_sweep.window_sweep(*args)
 """
     code = f"""

@@ -149,8 +149,7 @@ def test_window_twin_matches_jax(bunny, name):
     t = [x.numpy() for x in tsweep.window_reference(
         phi, a, torch.from_numpy(starts.astype(np.int32)),
         torch.from_numpy(skips.astype(np.int32)), tct.cols,
-        tct.is_sphere.view(C_tot, K), tct.valid_row.view(C_tot, K),
-        tct.ranges, K, W, T_MIN, 128)]
+        tct.is_sphere.view(C_tot, K), tct.ranges, K, W, T_MIN, 128)]
     j = [np.asarray(x) for x in jsweep._window_pass(
         jct, jnp.asarray(phi.numpy()), jnp.asarray(a.numpy()),
         jnp.asarray(starts, jnp.int32), jnp.asarray(skips, jnp.int32), W,
@@ -328,8 +327,7 @@ def test_window_wrapper_dispatch(bunny):
     args = (ray_features(o, d), vec.dot(d, d),
             torch.tensor([0, 3], dtype=torch.int32),
             torch.tensor([0, 1], dtype=torch.int32), tct.cols,
-            tct.is_sphere.view(C_tot, K), tct.valid_row.view(C_tot, K),
-            tct.ranges)
+            tct.is_sphere.view(C_tot, K), tct.ranges)
     before = tsweep.WINDOW_LAUNCHES
     got = tsweep.window_sweep(*args, K, 4, T_MIN, 128)
     ref = tsweep.window_reference(*args, K, 4, T_MIN, 128)
@@ -355,8 +353,7 @@ def test_window_twin_rejects_windows_off_the_tables(bunny, first, raises):
     args = (ray_features(o, d), vec.dot(d, d),
             torch.tensor([C_tot + first, C_tot], dtype=torch.int32),
             torch.tensor([0, 1], dtype=torch.int32), tct.cols,
-            tct.is_sphere.view(C_tot, K), tct.valid_row.view(C_tot, K),
-            tct.ranges)
+            tct.is_sphere.view(C_tot, K), tct.ranges)
     if raises:
         with pytest.raises(ValueError, match="leaves the 30 clusters"):
             tsweep.window_sweep(*args, K, 4, T_MIN, 128)

@@ -4,8 +4,9 @@ kernels, on the CPU through their plain twins.
 - The ranges (``ClusterTables.ranges``, ``pallas_sweep.kernel_tables``)
   are contiguous and cover exactly the rows that hold a primitive.
 - Each twin with ranges is bit-identical to the same twin over every row:
-  the padding rows it skips can never hit (their packed |c|^2 - r^2
-  overflows to inf, so the discriminant is NaN or -inf, for any ray).
+  the padding rows it skips can never hit (in the cluster tables their
+  packed |c|^2 - r^2 overflows to inf, so the discriminant is NaN or -inf,
+  for any ray; in the dense tables they are all-zero triangles, det == 0).
 - The kernels' staged epilogue (a sphere's roots only where disc >= 0, a
   triangle's t only where its barycentric tests pass) gives the full
   epilogue's effective t bit for bit, special values included.
@@ -90,7 +91,7 @@ def _dense_scene(name):
 def test_dense_ranges_are_the_valid_prefix(name, tile):
     scene, _ = _dense_scene(name)
     tables = pack_sweep_tables(scene, tile=tile)
-    ranges = tpallas.kernel_tables(tables)[3]
+    ranges = tpallas.kernel_tables(tables)[2]
     n_valid = tables.valid_row.sum(dim=1)
     assert ranges[:, 0].eq(0).all()
     np.testing.assert_array_equal(ranges[:, 1].numpy(), n_valid.numpy())
@@ -129,9 +130,9 @@ def _dense_args(name, kind, n=700):
                                        ("cornell-full", "shadow")])
 def test_dense_twin_with_ranges_equals_full_sweep(name, kind):
     args = list(_dense_args(name, kind))
-    ranges = args[5]
+    ranges = args[4]
     got = tpallas.sweep_reference(*args)
-    args[5] = _full(ranges, args[3].shape[1])
+    args[4] = _full(ranges, args[3].shape[1])
     ref = tpallas.sweep_reference(*args)
     for x, y in zip(got, ref):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
@@ -141,7 +142,7 @@ def test_dense_twin_with_ranges_equals_full_sweep(name, kind):
 def test_dense_twin_rejects_ranges_off_the_tile():
     args = list(_dense_args("triangle", "camera", n=128))
     for bad in ([[0, 1025]], [[-1, 10]], [[20, 10]]):
-        args[5] = torch.tensor(bad, dtype=torch.int32)
+        args[4] = torch.tensor(bad, dtype=torch.int32)
         with pytest.raises(ValueError, match="leaves"):
             tpallas.sweep_reference(*args)
 
@@ -174,10 +175,9 @@ def test_window_twin_with_ranges_equals_full_sweep(bunny, kind, wave):
     args = [ray_features(ot, dt), torch.where(a == 0.0, 1.0, a),
             torch.from_numpy(starts.astype(np.int32)),
             torch.from_numpy(skips.astype(np.int32)), tct.cols,
-            tct.is_sphere.view(C_tot, K), tct.valid_row.view(C_tot, K),
-            tct.ranges, K, W, T_MIN, 128]
+            tct.is_sphere.view(C_tot, K), tct.ranges, K, W, T_MIN, 128]
     got = tsweep.window_reference(*args)
-    args[7] = _full(tct.ranges, K)
+    args[6] = _full(tct.ranges, K)
     ref = tsweep.window_reference(*args)
     for x, y in zip(got, ref):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
@@ -194,8 +194,7 @@ def test_window_twin_rejects_ranges_off_the_cluster(bunny):
             ray_features(o, d), vec.dot(d, d),
             torch.tensor([0], dtype=torch.int32),
             torch.tensor([0], dtype=torch.int32), tct.cols,
-            tct.is_sphere.view(C_tot, tct.K), tct.valid_row.view(C_tot, tct.K),
-            bad, tct.K, 4, T_MIN, 128)
+            tct.is_sphere.view(C_tot, tct.K), bad, tct.K, 4, T_MIN, 128)
 
 
 @pytest.mark.parametrize("scale", [1.0, 1e10, 1e30])
@@ -341,14 +340,14 @@ def test_group_split_gives_the_twins_result(scene_name, G, rt):
     kt = tpallas.kernel_tables(pack_sweep_tables(scene, tile=1024))
     args = tpallas.sweep_inputs(kt, o, d, T_MIN)
     t_ref, b_ref = tpallas.sweep_reference(*args)
-    phi, a, cols, is_sphere, valid_row, ranges = args[:6]
+    phi, a, cols, is_sphere, ranges = args[:5]
     lo, hi = ranges[0].tolist()
     tile = is_sphere.shape[1]
     S = contract(phi, cols[0])
     t_eff = _epilogue(S[:, 0:tile], S[:, tile:2 * tile],
                       S[:, 2 * tile:3 * tile], S[:, 3 * tile:4 * tile],
-                      a[:, None], is_sphere[0] != 0, valid_row[0] != 0,
-                      T_MIN, BIG)[:, lo:hi]
+                      a[:, None], is_sphere[0] != 0, True, T_MIN,
+                      BIG)[:, lo:hi]
     n = hi - lo
     rng = np.random.default_rng(100 + G)
     cuts = np.sort(rng.choice(np.arange(1, n), G - 1, replace=False))
