@@ -13,16 +13,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    spills from ptxas (fails if the march spills);
 3. kernels vs plain twins on the card, at the main paths' shapes, timed
    with CUDA events (median of 5 after a warm-up), each beside its bound:
-   the cluster march on a 57,600-ray bunny camera and bounce wavefront; the
-   dense sweep on the triangle world's 90,000-ray camera wavefront, the
-   cornell-full 65,536-ray camera wavefront and a cornell-full shadow
-   wavefront (t_min = K_SHADOW_T_MIN), with the ``tensor`` route (the
-   ``auto`` choice for these scenes) timed at the same shapes; the window
+   the cluster march on a 57,600-ray bunny camera and bounce wavefront
+   and on NEE shadow segments from the camera hits (t_max 1, caller
+   order), each also with its device time from ``torch.profiler``, the
+   chunks that march, their slots, and the time per slot of the longest
+   chunk; the dense sweep on the triangle world's 90,000-ray camera
+   wavefront, the cornell-full 65,536-ray camera wavefront and a
+   cornell-full shadow wavefront (t_min = K_SHADOW_T_MIN), with the
+   ``tensor`` route (the ``auto`` choice for these scenes) timed at the
+   same shapes; the window
    sweep of the rounds strategy (K=128 tables) on every launch of one
    rounds query of the 57,600-ray bunny camera wavefront (residual pass,
    rounds, fallback: kind, W, live chunks, time and bound each, and their
-   sums) and on a full-width fallback over every chunk. The dense and
-   window sweeps must agree with their twins to the bit;
+   sums) and on a full-width fallback over every chunk. Every kernel must
+   agree with its twin to the bit;
 4. main paths through the CLI's code path, each with every launch counter
    reset just before it and read just after: the bunny at 640x360, 8 spp,
    depth 4 (cluster march); cornell-full at 256x256, 64 spp, depth 4 with
@@ -48,7 +52,7 @@ source, launches on its main path, error, times and bound; the last line is
 
     python3 chip_smoke.py --bench [DIR]
 
-times the dense and window sweeps alone, on the inputs of phases 3b and 3c
+times the three kernels alone, on the inputs of phases 3a, 3b and 3c
 (the same builders), and prints no result line: each wavefront or launch
 with the wrapper's time (CUDA events, median of 20 calls after a warm-up)
 and the kernel's own device time (``torch.profiler``, the mean over 20
@@ -337,6 +341,81 @@ def window_needed_ops(torch, w):
     return total
 
 
+def march_needed_ops(torch, m, slots):
+    """(needed, full) operations of one march launch (its arguments ``m``
+    by name, ``slots`` the slots each chunk marched): each cluster against
+    the rays of the chunks that marched it, over its real rows; needed_ops
+    for the first, every pair's full count (OPS_*_PAIR) for the second."""
+    ids, ray_tile = m["ids"], m["ray_tile"]
+    n_chunks, n_slots = ids.shape
+    P = m["phi"].view(n_chunks, ray_tile, -1)
+    A = m["a"].view(n_chunks, ray_tile)
+    marched = (torch.arange(n_slots, device=ids.device)[None, :]
+               < slots[:, None].long())
+    needed = full = 0.0
+    for c, (lo, hi) in enumerate(m["ranges"].tolist()):
+        sel = ((ids == c) & marched).any(dim=1)
+        if hi == lo or not bool(sel.any()):
+            continue
+        block, sph = range_block(m["cols"][c], m["is_sphere"][c], lo, hi)
+        needed += needed_ops(torch, P[sel].reshape(-1, P.shape[2]),
+                             A[sel].reshape(-1), block, sph)
+        n_sph = int(sph.sum())
+        full += int(sel.sum()) * ray_tile * float(
+            OPS_SPHERE_PAIR * n_sph + OPS_TRI_PAIR * (hi - lo - n_sph))
+    return needed, full
+
+
+def march_walk(slots):
+    """(chunks that march, slots p50 and max over them) of the slots each
+    chunk marched, a numpy array."""
+    import numpy as np
+    walking = slots[slots > 0]
+    if walking.size == 0:
+        return 0, 0.0, 0
+    return int(walking.size), float(np.median(walking)), int(walking.max())
+
+
+def march_wavefronts(dev):
+    """The march's inputs: the bunny's cluster tables (the renderer's K),
+    its 57,600-ray camera wavefront, and the march arguments of three
+    queries, as (tables, (o, d) of the camera, [(name, args)]): the camera
+    wavefront and its one bounce (the camera hits shaded, dead lanes with
+    d = 0), sorted as the render sorts them, and NEE shadow segments from
+    the camera hits to points above the bunny (t_min K_SHADOW_T_MIN, t_max
+    1, in caller order, as the shadow query runs)."""
+    import torch
+    from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import cluster_sweep, intersect
+    from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+    from pathtracer_tpu_torch.render.renderer import CLUSTER_K
+    from pathtracer_tpu_torch.scene import materials
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    scene, cam = get_world("bunny", device=dev)
+    ct = build_cluster_tables(scene, K=CLUSTER_K)
+    o_cam, d_cam = camera_wavefront(dev, cam, RAYS, 0)
+    idx, t, valid = cluster_sweep.cluster_march(ct, o_cam, d_cam, T_MIN)
+    rec = intersect.hit_records_from_prims(ct.scene, idx, o_cam, d_cam,
+                                           T_MIN, intersect.BIG_T, valid)
+    sc = materials.scatter(ct.scene, rec, d_cam, prng.uniform_by_ray(
+        prng.PRNGKey(0), torch.arange(RAYS, device=dev), 6))
+    alive = valid & sc.ok
+    o_b = torch.where(alive[:, None], rec.p, o_cam)
+    d_b = torch.where(alive[:, None], sc.direction, 0.0)
+    u = prng.uniform(prng.fold_in(prng.PRNGKey(4), 1), (RAYS, 3), dev)
+    light = (torch.tensor([-6.0, 2.0, -6.0], device=dev)
+             + u * torch.tensor([12.0, 10.0, 12.0], device=dev))
+    p = o_cam + t[:, None] * d_cam
+    seg = torch.where(valid[:, None], light - p, 0.0)
+    return ct, (o_cam, d_cam), [
+        (name, cluster_sweep.march_inputs(ct, o, d, T_MIN)["args"])
+        for name, o, d in (("camera", o_cam, d_cam), ("bounce", o_b, d_b))
+    ] + [("shadow", cluster_sweep.march_inputs(
+        ct, p, seg, K_SHADOW_T_MIN, active=valid, t_max=1.0,
+        sort_rays=False)["args"])]
+
+
 def real_rows(ct, scene):
     """(C_tot, K) bool: the cluster tables' rows that hold one of the
     scene's primitives, not the inert padding (which the tables mark valid,
@@ -398,10 +477,11 @@ def check_image(name, img_np, shape, lo, hi):
     return mean
 
 
-def device_ms(fn, torch, reps: int) -> float:
-    """Mean device time of the sweep kernel launched by ``fn()`` over
-    ``reps`` calls after a warm-up, from torch.profiler (device activity
-    only)."""
+def device_ms(fn, torch, reps: int, kernel: str):
+    """Mean device time of the kernels named ``*kernel*`` that ``fn()``
+    launches, over ``reps`` calls after a warm-up, from torch.profiler
+    (device activity only); None where the profiler recorded none of
+    them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -410,13 +490,22 @@ def device_ms(fn, torch, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(float(getattr(e, "self_device_time_total", 0.0))
-             for e in prof.key_averages() if "sweep_kernel" in e.key)
-    return us / 1e3 / reps
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps if us > 0.0 else None
+
+
+def ms_text(ms, slots=0) -> str:
+    """A device time as printed, with its time per slot where ``slots``
+    (the longest chunk's) is given; "not measured" where it is None."""
+    if ms is None:
+        return "device not measured"
+    per_slot = f", {ms * 1e3 / slots:.3f} us per slot" if slots else ""
+    return f"device {ms:.4f} ms{per_slot}"
 
 
 def bench(tree: str, reps: int = BENCH_REPS) -> int:
-    """The dense and window sweeps alone on the inputs of phases 3b and 3c,
-    with ``pathtracer_tpu_torch`` imported from ``tree``."""
+    """The three kernels alone on the inputs of phases 3a, 3b and 3c, with
+    ``pathtracer_tpu_torch`` imported from ``tree``."""
     import torch
     sys.path.insert(0, os.path.abspath(tree))
     try:
@@ -430,10 +519,17 @@ def bench(tree: str, reps: int = BENCH_REPS) -> int:
     print(f"bench: {os.path.dirname(os.path.dirname(pallas_sweep.__file__))}"
           f" [{card}]", flush=True)
 
-    def line(what, fn):
-        print(f"{what}: {cuda_ms(fn, torch, reps):.4f} ms, device "
-              f"{device_ms(fn, torch, reps):.4f} ms [{card}]", flush=True)
+    def line(what, fn, kernel="sweep_kernel", slots=0):
+        dev_ms = device_ms(fn, torch, reps, kernel)
+        print(f"{what}: {cuda_ms(fn, torch, reps):.4f} ms, "
+              f"{ms_text(dev_ms, slots)} [{card}]", flush=True)
 
+    for name, args in march_wavefronts(dev)[2]:
+        n_walk, p50, longest = march_walk(
+            cluster_sweep.march(*args)[2].cpu().numpy())
+        line(f"cluster_march {name} ({n_walk} chunks march, slots p50 "
+             f"{p50:g} / max {longest})", lambda: cluster_sweep.march(*args),
+             "cluster_march_kernel", longest)
     for name, _, tables, o, d, t_min in dense_wavefronts(dev):
         args = pallas_sweep.sweep_inputs(pallas_sweep.kernel_tables(tables),
                                          o, d, t_min)
@@ -453,8 +549,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
                                  "PyTorch/CUDA port.")
     ap.add_argument("--bench", nargs="?", const=HERE, metavar="DIR",
-                    help="time the dense and window sweeps alone, with the "
-                    "port imported from DIR (default: this checkout)")
+                    help="time the three kernels alone, with the port "
+                    "imported from DIR (default: this checkout)")
     opts = ap.parse_args()
     try:
         import torch
@@ -474,14 +570,11 @@ def main() -> int:
 
     from pathtracer_tpu_torch import __main__ as cli
     from pathtracer_tpu_torch.config import RenderConfig
-    from pathtracer_tpu_torch.core import random as prng
     from pathtracer_tpu_torch.io.png import write_png
     from pathtracer_tpu_torch.ops import intersect, tensor_sweep
     from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
     from pathtracer_tpu_torch.presets import combined_scene, get_preset
-    from pathtracer_tpu_torch.render.renderer import (CLUSTER_K,
-                                                      make_renderer)
-    from pathtracer_tpu_torch.scene import materials
+    from pathtracer_tpu_torch.render.renderer import make_renderer
     from pathtracer_tpu_torch.scene.worlds import get_world
 
     # 1. device
@@ -513,62 +606,41 @@ def main() -> int:
             fail("the march kernel spills (ptxas above)")
 
     # 3a. the cluster march against its twin
-    scene, cam = get_world("bunny", device=dev)
-    ct = build_cluster_tables(scene, K=CLUSTER_K)
+    scene, _ = get_world("bunny", device=dev)
+    ct, (o_cam, d_cam), march_waves = march_wavefronts(dev)
     prim_type = ct.scene.prim_type.cpu().numpy()
-    key = prng.PRNGKey(0)
-    o_cam, d_cam = camera_wavefront(dev, cam, RAYS, 0)
-    # one bounce: shade the camera hits, dead lanes get d = 0
-    idx, _, valid = cluster_sweep.cluster_march(ct, o_cam, d_cam, T_MIN)
-    rec = intersect.hit_records_from_prims(ct.scene, idx, o_cam, d_cam,
-                                           T_MIN, intersect.BIG_T, valid)
-    sc = materials.scatter(ct.scene, rec, d_cam,
-                           prng.uniform_by_ray(key, torch.arange(RAYS,
-                                                                 device=dev),
-                                               6))
-    alive = valid & sc.ok
-    o_b = torch.where(alive[:, None], rec.p, o_cam)
-    d_b = torch.where(alive[:, None], sc.direction, 0.0)
-
     march_err = 0.0
     march = {}
-    for name, o, d in (("camera", o_cam, d_cam), ("bounce", o_b, d_b)):
-        q = cluster_sweep.march_inputs(ct, o, d, T_MIN)
-        args = q["args"]
+    for name, args in march_waves:
+        m = named(cluster_sweep.march, args)
         kernel = cluster_sweep.march(*args)
         torch.cuda.synchronize()
         twin = cluster_sweep.march_reference(*args)
         t_k, b_k, s_k = (x.cpu().numpy() for x in kernel)
         t_r, b_r, s_r = (x.cpu().numpy() for x in twin)
-        march_err = max(march_err, compare_hits(
-            f"march {name}", t_k, b_k, t_r, b_r, prim_type))
-        tot_k, tot_r = int(s_k.sum()), int(s_r.sum())
-        if abs(tot_k - tot_r) > 0.001 * max(tot_r, 1):
-            fail(f"march {name}: slots marched differ: kernel {tot_k}, "
-                 f"twin {tot_r}")
-        # executed pairs: each chunk's first `slots` clusters x its lanes,
-        # by the prim types of each cluster's real rows (the padding rows
-        # that fill the last cluster are swept, but the function needs none)
-        ids, slots = args[3], kernel[2]
-        live_rows = real_rows(ct, scene)
-        sph_rows = (args[6] != 0) | (args[8] == 1)[:, None]
-        n_sph_c = (live_rows & sph_rows).sum(1).double()
-        n_tri_c = (live_rows & ~sph_rows).sum(1).double()
-        marched = (torch.arange(ids.shape[1], device=dev)[None, :]
-                   < slots[:, None].long())
-        c = ids.long().clamp(0, n_sph_c.shape[0] - 1)
-        lanes = args[12]
-        ops = lanes * float((marched * (OPS_SPHERE_PAIR * n_sph_c[c]
-                                        + OPS_TRI_PAIR * n_tri_c[c])).sum())
-        b_ms, b_by = bound(nbytes(*args[:9], *kernel), ops)
+        err = compare_hits(f"march {name}", t_k, b_k, t_r, b_r, prim_type)
+        if not (np.array_equal(b_k, b_r) and np.array_equal(t_k, t_r)
+                and np.array_equal(s_k, s_r)):
+            fail(f"march {name}: kernel and twin are not bit-equal (t, "
+                 f"best or slots per chunk)")
+        march_err = max(march_err, err)
+        n_walk, p50, longest = march_walk(s_k)
+        ops, full_ops = march_needed_ops(torch, m, kernel[2])
+        b_ms, b_by = bound(nbytes(*args, *kernel), ops)
         ms = cuda_ms(lambda: cluster_sweep.march(*args), torch)
+        dev_ms = device_ms(lambda: cluster_sweep.march(*args), torch, 20,
+                           "cluster_march_kernel")
         plain_ms = cuda_ms(lambda: cluster_sweep.march_reference(*args),
                            torch)
         march[name] = (ms, plain_ms, b_ms, b_by)
-        print(f"march {name} wavefront ({RAYS} rays, {tot_k} slots kernel /"
-              f" {tot_r} twin, max |dt| {march_err:.3g}): kernel {ms:.4f} "
-              f"ms, plain twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}, {ops / 1e9:.4f} GFLOP) [{card}]")
+        print(f"march {name} wavefront ({RAYS} rays, {n_walk} of "
+              f"{s_k.shape[0]} chunks march, slots p50 {p50:g} / max "
+              f"{longest}, {int(s_k.sum())} slots, bit-equal to the twin, "
+              f"max |dt| {err:.3g}): kernel {ms:.4f} ms, "
+              f"{ms_text(dev_ms, longest)} of the longest chunk; plain "
+              f"twin {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+              f"{ops / 1e9:.4f} GFLOP needed of {full_ops / 1e9:.4f} in "
+              f"full) [{card}]")
 
     # 3b. the dense sweep against its twin, and the tensor route
     sweep_err = 0.0

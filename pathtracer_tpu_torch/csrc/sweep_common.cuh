@@ -1,19 +1,16 @@
-// Pair-scalar closest-hit arithmetic shared by the port's sweep kernels
-// (cluster_march.cu, dense_sweep.cu, window_sweep.cu).
+// The sweep core of the port's three closest-hit kernels: the cluster march
+// (cluster_march.cu), the dense sweep (dense_sweep.cu) and the window sweep
+// (window_sweep.cu). A tile of rays is swept against runs of primitives
+// staged in shared memory.
 //
 // Every per-(ray, primitive) scalar of the sphere and triangle tests is the
 // dot product of the ray's 12 features phi = [d, o, o x d, o.d, |o|^2, 1]
 // with one of the primitive's four 12-wide columns (ops/tensor_sweep.py in
-// the port). The functions below are the kernels' copies of `contract` and
-// `_epilogue_sphere` / `_epilogue_tri` there: the same operations in the
-// same order. Built with --fmad=false and without fast math, every product,
-// sum, division and square root rounds like the separate PyTorch ops of the
-// plain twins, so a kernel and its twin agree to the bit.
-//
-// The march (cluster_march.cu) visits one cluster with `stage_cluster`,
-// which copies its column block and masks into shared memory, and
-// `sweep_cluster`, which runs one ray against its K primitives. The dense
-// and window sweeps share the sweep core at the end of this file.
+// the port). `sweep_records` forms them and the hit tests by the same
+// operations in the same order as `contract` and `_epilogue` there (the
+// plain twins' definition). Built with --fmad=false and without fast math,
+// every product, sum, division and square root rounds like the separate
+// PyTorch ops of the twins, so a kernel and its twin agree to the bit.
 #pragma once
 
 namespace pt_sweep {
@@ -22,109 +19,13 @@ constexpr float kBig = 3.0e38f;
 constexpr int kFeat = 12;
 constexpr int kOuts = 4;
 
-// sum_f p[f] * col[f * stride], left to right.
-__device__ __forceinline__ float pair_scalar(const float* p,
-                                             const float* col, int stride) {
-  float s = p[0] * col[0];
-#pragma unroll
-  for (int f = 1; f < kFeat; ++f) s = s + p[f] * col[f * stride];
-  return s;
-}
-
-// Sphere: B = oc.d, C0 = |oc|^2 - r^2, a = |d|^2 and inv_a = 1 / a. The near
-// root when it lies in [t_min, t_max], else the far root.
-__device__ __forceinline__ bool sphere_hit(float B, float C0, float a,
-                                           float inv_a, float t_min,
-                                           float t_max, float* t) {
-  const float disc = B * B - a * C0;
-  const float sqrt_d = disc > 0.0f ? sqrtf(disc) : 0.0f;
-  const float root0 = (-B - sqrt_d) * inv_a;
-  const float root1 = (-B + sqrt_d) * inv_a;
-  const bool ok0 = !((root0 < t_min) || (t_max < root0));
-  const bool ok1 = !((root1 < t_min) || (t_max < root1));
-  *t = ok0 ? root0 : root1;
-  return (disc >= 0.0f) && (ok0 || ok1);
-}
-
-// Triangle (Moller-Trumbore): det, t * det, b1 * det, b2 * det. Strict
-// rejections: det == 0, b1 <= 0, b2 <= 0, b1 + b2 >= 1, t outside
-// (t_min, t_max).
-__device__ __forceinline__ bool triangle_hit(float det, float tdet,
-                                             float b1det, float b2det,
-                                             float t_min, float t_max,
-                                             float* t) {
-  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-  *t = tdet * inv_det;
-  const float b1 = b1det * inv_det;
-  const float b2 = b2det * inv_det;
-  return !((det == 0.0f) || (b1 <= 0.0f) || (b2 <= 0.0f) ||
-           (b1 + b2 >= 1.0f) || (*t <= t_min) || (*t >= t_max));
-}
-
-// Copies cluster c of the cluster tables into shared memory, every thread of
-// the block striding: its kFeat x kOuts*K column block (cols is (C_tot,
-// kFeat, kOuts*K)) into s_cols, and its is_sphere / valid_row rows (each
-// (C_tot, K)) into s_sph / s_valid. The caller synchronises before reading.
-// The stride is a signed int: striding by the unsigned blockDim.x made
-// ptxas give the march 32 registers and a spill instead of 55 registers,
-// and the march ~20% slower on an H100.
-__device__ __forceinline__ void stage_cluster(
-    const float* __restrict__ cols, const int* __restrict__ is_sphere,
-    const int* __restrict__ valid_row, int c, int K, float* s_cols,
-    int* s_sph, int* s_valid) {
-  const int width = kFeat * kOuts * K;
-  const int tid = threadIdx.x;
-  const int n = blockDim.x;
-  const float* src = cols + static_cast<long long>(c) * width;
-  for (int i = tid; i < width; i += n) s_cols[i] = src[i];
-  for (int i = tid; i < K; i += n) {
-    s_sph[i] = is_sphere[c * K + i];
-    s_valid[i] = valid_row[c * K + i];
-  }
-}
-
 // A ray's running closest hit: t and the winner's global index (-1: none).
 struct Best {
   float t;
   int idx;
 };
 
-// One ray (features p, a = |d|^2, inv_a = 1 / a) against the K staged
-// primitives of cluster c, in ascending k: a hit in the window replaces
-// `best` only where strictly nearer, so the lowest global index c * K + k
-// wins a tie. ct says how a primitive is typed: 1 all-sphere, 2
-// all-triangle, 0 each by its own s_sph row. The running best goes in and
-// out by value, so it stays in registers.
-__device__ __forceinline__ Best sweep_cluster(
-    const float* p, float a, float inv_a, const float* s_cols,
-    const int* s_sph, const int* s_valid, int ct, int c, int K, float t_min,
-    float t_max, Best best) {
-  for (int k = 0; k < K; ++k) {
-    if (s_valid[k] == 0) continue;
-    float S[kOuts];
-#pragma unroll
-    for (int o = 0; o < kOuts; ++o) {
-      // feature f of output o at s_cols[f * kOuts * K + o * K + k]
-      S[o] = pair_scalar(p, s_cols + o * K + k, kOuts * K);
-    }
-    const bool sph = (ct == 1) || (ct == 0 && s_sph[k] != 0);
-    float t;
-    const bool hit =
-        sph ? sphere_hit(S[0], S[1], a, inv_a, t_min, t_max, &t)
-            : triangle_hit(S[0], S[1], S[2], S[3], t_min, t_max, &t);
-    if (hit && t < best.t) {
-      best.t = t;
-      best.idx = c * K + k;
-    }
-  }
-  return best;
-}
-
 // ---------------------------------------------------------------------------
-// The sweep core of the dense sweep (dense_sweep.cu) and the window sweep
-// (window_sweep.cu): a tile of rays against runs of primitives staged in
-// shared memory.
-//
 // * Records. A run of n primitives (rows [lo, lo + n) of a (kFeat, kOuts *
 //   width) column block) is staged as one record per primitive: its 12
 //   features x 4 outputs contiguous, feature-major, so that feature f of
@@ -153,7 +54,9 @@ __device__ __forceinline__ Best sweep_cluster(
 //   primitive) t is formed by the same operations in the same order
 //   whatever the split, so the global first minimum is the minimum t with
 //   the lowest index among those that reach it, which this rule picks for
-//   any partition of the primitives.
+//   any partition of the primitives. The march merges its groups the same
+//   way once per slot, within one cluster, and folds the result into the
+//   running best in slot order (cluster_march.cu).
 // ---------------------------------------------------------------------------
 
 constexpr int kRec = 52;
@@ -181,8 +84,10 @@ struct RunBuf {
 // o of row k at cols[(f * kOuts + o) * width + k]) and of is_sphere into
 // `buf`, every thread of the block striding; with kAsync through cp.async
 // (the caller commits and waits), else with plain loads and stores (the
-// caller synchronises before reading). The stride is a signed int (see
-// stage_cluster).
+// caller synchronises before reading). The stride is a signed int:
+// striding a staging loop by the unsigned blockDim.x once made ptxas give
+// the march 32 registers and a spill instead of 55, and the march ~20%
+// slower on an H100.
 template <bool kAsync>
 __device__ __forceinline__ void stage_records(
     const float* __restrict__ cols, const int* __restrict__ is_sphere,
@@ -277,18 +182,27 @@ __device__ __forceinline__ void load_ray(RayTile<RT>& rt, int i,
 }
 
 // The thread's RT rays against staged primitives k0, k0 + step, ... < n of
-// `buf` in ascending order; global index base + k. Hits in [t_min, t_max]
-// by the epilogues above, merged with a strict `<`.
+// `buf` in ascending order; global index base + k; a hit replaces the
+// running best only where strictly nearer.
+//
+// The hit tests are the twins' `_epilogue` (ops/tensor_sweep.py), whose
+// definition this follows. A sphere (pair scalars B = oc.d, C0 = |oc|^2 -
+// r^2): disc = B * B - a * C0, the roots (-B -+ sqrt(disc)) / a by 1 / a,
+// the near root where it lies in [t_min, t_max], else the far one; a hit
+// where disc >= 0 and either root is in range. A triangle (Moller-Trumbore:
+// det, t * det, b1 * det, b2 * det): inv_det = 1 / det (1 where det == 0),
+// missed where det == 0, b1 <= 0, b2 <= 0, b1 + b2 >= 1 or t is outside
+// (t_min, t_max).
 //
 // Each value is formed only where the result can still depend on it, by
-// the same operations in the same order as in sphere_hit and triangle_hit,
-// so the result is theirs for any input (NaN and inf included):
+// the same operations in the same order as `_epilogue`, so the result is
+// its result for any input (NaN and inf included):
 // * a sphere forms B and C0 and its discriminant; the roots and the range
-//   tests run only where disc >= 0 (sphere_hit's first condition);
+//   tests run only where disc >= 0 (the hit's first condition);
 // * a triangle forms det, b1 * det and b2 * det first, and t * det (its
 //   fourth pair scalar, from the record's second output) only for a ray
-//   that passes every test of triangle_hit that does not involve t: det
-//   != 0, b1 > 0, b2 > 0, b1 + b2 < 1. On the triangle world's camera
+//   that passes every test that does not involve t: det != 0, b1 > 0,
+//   b2 > 0, b1 + b2 < 1. On the triangle world's camera
 //   rays, under 2% of the warps have such a ray for a given triangle, and
 //   under 10% a ray with disc >= 0 for a given sphere.
 template <int RT>
@@ -319,7 +233,7 @@ __device__ __forceinline__ void sweep_records(RayTile<RT>& rt, RunBuf buf,
       }
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
-        // sphere_hit, with the roots only where disc >= 0
+        // the sphere's hit, with the roots only where disc >= 0
         const float disc = S0[i] * S0[i] - rt.a[i] * S1[i];
         if (disc >= 0.0f) {
           const float sqrt_d = disc > 0.0f ? sqrtf(disc) : 0.0f;
@@ -361,7 +275,7 @@ __device__ __forceinline__ void sweep_records(RayTile<RT>& rt, RunBuf buf,
       bool any = false;
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
-        // triangle_hit's tests that do not involve t
+        // the triangle's tests that do not involve t
         inv_det[i] = 1.0f / (D[i] == 0.0f ? 1.0f : D[i]);
         const float b1 = B1[i] * inv_det[i];
         const float b2 = B2[i] * inv_det[i];

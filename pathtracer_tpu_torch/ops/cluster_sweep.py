@@ -67,7 +67,7 @@ MARCH_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
 _MARCH_PROTOTYPES = {"cluster_march_launch": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p] * 4)}
 _WINDOW_PROTOTYPES = {"window_sweep_launch": (
@@ -104,20 +104,22 @@ def _cull(o, d, active, cmin, cmax, t_min):
     return _cull_T(o, d, active, cmin, cmax, t_min).T
 
 
-def march_reference(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
-                    ctype, K: int, t_min: float, t_max: float,
-                    ray_tile: int):
+def march_reference(phi, a, gate, ids, ents, cols, is_sphere, ranges,
+                    K: int, t_min: float, t_max: float, ray_tile: int):
     """Plain PyTorch twin of the CUDA march kernel: same inputs, same
     (t_best (R,) f32, best (R,) int32, slots (n_chunks,) int32).
 
     Loops over order slots, vectorised over the chunks still marching. A
     chunk marches slot j while max over its lanes of min(t_best, gate)
-    exceeds ents[j]; slot j sweeps cluster ids[j] with the pair-scalar
-    contraction and the sphere or triangle epilogue (by ``ctype``), and a
-    lane takes the cluster's first minimum only where it is strictly
-    better."""
+    exceeds ents[j]; slot j sweeps cluster c = ids[j] over its rows [lo, hi)
+    = ranges[c] only, with the pair-scalar contraction and the epilogue,
+    each primitive typed by its own is_sphere row, and a lane takes the
+    cluster's first minimum only where it is strictly better. Raises
+    ValueError where a range leaves [0, K]."""
+    check_ranges(ranges, K)
     n_chunks, n_slots = ids.shape
     dev = phi.device
+    k = torch.arange(K, device=dev)
     P = phi.view(n_chunks, ray_tile, FEAT)
     A = a.view(n_chunks, ray_tile)
     G = gate.view(n_chunks, ray_tile)
@@ -135,14 +137,14 @@ def march_reference(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
             break
         slots += marching.to(torch.int32)
         c = ids[live, j].long()
+        rng = ranges[c]
+        swept = (k[None, :] >= rng[:, 0:1]) & (k[None, :] < rng[:, 1:2])
         S = contract(P[live], cols[c])                   # (L, T, OUTS*K)
         B, C0 = S[..., 0:K], S[..., K:2 * K]
         D, E = S[..., 2 * K:3 * K], S[..., 3 * K:4 * K]
-        # by cluster type: 1 all-sphere, 2 all-triangle, 0 per prim
-        ct = ctype[c][:, None, None]
-        sph = (ct == 1) | ((ct == 0) & (is_sphere[c][:, None, :] != 0))
-        t_eff = _epilogue(B, C0, D, E, A[live][:, :, None], sph,
-                          valid_row[c][:, None, :] != 0, t_min, t_max)
+        t_eff = _epilogue(B, C0, D, E, A[live][:, :, None],
+                          is_sphere[c][:, None, :] != 0, swept[:, None, :],
+                          t_min, t_max)
         local_j = torch.argmin(t_eff, dim=2)   # first minimum
         local_t = torch.amin(t_eff, dim=2)
         t_prev = t_acc[live]
@@ -153,8 +155,8 @@ def march_reference(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
     return t_acc.reshape(-1), b_acc.reshape(-1), slots
 
 
-def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
-                K, t_min, t_max, ray_tile):
+def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, ranges, K, t_min,
+                t_max, ray_tile):
     global MARCH_LAUNCHES
     n_chunks, n_slots = ids.shape
     R = n_chunks * ray_tile
@@ -169,8 +171,7 @@ def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
             ("ents", ents, torch.float32, (n_chunks, n_slots)),
             ("cols", cols, torch.float32, (C_tot, FEAT, OUTS * K)),
             ("is_sphere", is_sphere, torch.int32, (C_tot, K)),
-            ("valid_row", valid_row, torch.int32, (C_tot, K)),
-            ("ctype", ctype, torch.int32, (C_tot,))):
+            ("ranges", ranges, torch.int32, (C_tot, 2))):
         _cuda_build.check_arg(x, name, dtype, shape, phi.device)
     fn = _cuda_build.load("cluster_march",
                           _MARCH_PROTOTYPES).cluster_march_launch
@@ -179,9 +180,9 @@ def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
     slots = torch.empty(n_chunks, dtype=torch.int32, device=phi.device)
     stream = torch.cuda.current_stream(phi.device).cuda_stream
     err = fn(phi.data_ptr(), a.data_ptr(), gate.data_ptr(), ids.data_ptr(),
-             ents.data_ptr(), n_chunks, n_slots, ray_tile, cols.data_ptr(),
-             is_sphere.data_ptr(), valid_row.data_ptr(), ctype.data_ptr(),
-             K, t_min, t_max, t_out.data_ptr(), best.data_ptr(),
+             ents.data_ptr(), n_chunks, n_slots, ray_tile, C_tot,
+             cols.data_ptr(), is_sphere.data_ptr(), ranges.data_ptr(), K,
+             t_min, t_max, t_out.data_ptr(), best.data_ptr(),
              slots.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cluster_march kernel launch failed: CUDA error "
@@ -190,17 +191,26 @@ def _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
     return t_out, best, slots
 
 
-def march(phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
-          K: int, t_min: float, t_max: float, ray_tile: int):
+def march(phi, a, gate, ids, ents, cols, is_sphere, ranges, K: int,
+          t_min: float, t_max: float, ray_tile: int):
     """The march: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors. Returns (t_best (R,) f32, best (R,) int32, slots (n_chunks,)
-    int32); ``best`` is -1 where nothing was hit."""
+    tensors. phi (R, 12), a = |d|^2, gate (R,), ids / ents (n_chunks,
+    n_slots) the clusters of each chunk in marching order and their chunk
+    entries, cols (C_tot, 12, 4K), is_sphere (C_tot, K) int32, ranges
+    (C_tot, 2) int32: the rows [lo, hi) of each cluster to sweep
+    (``ClusterTables.ranges``). Returns (t_best (R,) f32, best (R,) int32,
+    slots (n_chunks,) int32); ``best`` is the winner's c * K + k, -1 where
+    nothing was hit.
+
+    Every id must lie in [0, C_tot) and every range in [0, K]. The twin
+    raises otherwise; the kernel fails a device-side assert, so PyTorch
+    raises at the stream's next sync."""
     if phi.device.type == "cuda":
-        return _march_cuda(phi, a, gate, ids, ents, cols, is_sphere,
-                           valid_row, ctype, K, t_min, t_max, ray_tile)
+        return _march_cuda(phi, a, gate, ids, ents, cols, is_sphere, ranges,
+                           K, t_min, t_max, ray_tile)
     if phi.device.type == "cpu":
         return march_reference(phi, a, gate, ids, ents, cols, is_sphere,
-                               valid_row, ctype, K, t_min, t_max, ray_tile)
+                               ranges, K, t_min, t_max, ray_tile)
     raise ValueError(f"no cluster march for device {phi.device}")
 
 
@@ -212,8 +222,8 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
     Returns a dict with the sorted rays (``o``, ``d``, ``active``,
     ``active0`` in caller order, ``rid`` the caller position of each
     sorted lane, ``extras``), the kernel inputs
-    (``args``: phi, a, gate, ids, ents, cols, is_sphere, valid_row, ctype,
-    K, t_min, t_max, ray_tile) and the residual winners (``t_res``,
+    (``args`` of :func:`march`: phi, a, gate, ids, ents, cols, is_sphere,
+    ranges, K, t_min, t_max, ray_tile) and the residual winners (``t_res``,
     ``b_res``)."""
     if t_max is None:
         t_max = BIG
@@ -297,8 +307,8 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
     C_tot = ct.cols.shape[0]
     args = (phi.contiguous(), a.contiguous(), gate.contiguous(),
             ids.contiguous(), ents.contiguous(), ct.cols,
-            ct.is_sphere.view(C_tot, K), ct.valid_row.view(C_tot, K),
-            ct.ctype, K, t_min, float(t_max), ray_tile)
+            ct.is_sphere.view(C_tot, K), ct.ranges, K, t_min, float(t_max),
+            ray_tile)
     return dict(o=o, d=d, active=active, active0=active0, rid=rid,
                 extras=extras, args=args, t_res=t_res, b_res=b_res, r=r)
 

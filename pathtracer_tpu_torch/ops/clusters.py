@@ -52,7 +52,8 @@ class ClusterTables:
     K: int
     C_reg: int
     # (C_reg+1, 2) int32: the rows [lo, hi) of each cluster that hold a
-    # primitive of the scene (the window sweep sweeps only these; the
+    # primitive of the scene (the march and the window sweep sweep only
+    # these; the
     # padding rows, which ``valid_row`` marks valid as the reference's
     # tables do, can never be hit). Regular clusters [0, n), the residual
     # tile [K - n_huge, K), an empty cluster [0, 0).

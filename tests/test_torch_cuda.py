@@ -6,11 +6,11 @@ installed; the repository's conftest imports jax, hence on a GPU machine:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the march, those of tests/test_torch_march.py (kernel and twin
-are built to round alike, so they are expected to agree to the bit); the
-dense and window sweeps, which have no stop test and merge ties by the
-twins' rule, are held to the bit, on ragged ray counts, window widths that
-the thread groups do not divide, and ties.
+Tolerances: none. Kernel and twin are built to round alike, and every
+kernel merges its thread groups by a rule that gives the twin's winner
+for any split, so each is held to the bit: on ragged ray counts, chunk
+sizes, window widths that the thread groups do not divide, and ties (for
+the march, a tie across two slots).
 """
 import os
 import subprocess
@@ -30,7 +30,6 @@ from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, pack_sweep_tables,
                                                    ray_features)
 from pathtracer_tpu_torch.presets import get_preset
 from pathtracer_tpu_torch.render.renderer import make_renderer
-from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE
 from pathtracer_tpu_torch.scene.worlds import get_world
 
 pytestmark = pytest.mark.cuda
@@ -60,19 +59,18 @@ def _wavefront(name, cam, n, dev):
     return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
 
 
-def _assert_hits_match(t_k, b_k, t_r, b_r, prim_type):
-    """Kernel (t, best) against twin (t, best), best -1 on a miss."""
-    v_k, v_r = b_k >= 0, b_r >= 0
-    assert (v_k == v_r).mean() >= 0.999
-    both = v_k & v_r
-    assert (b_k == b_r)[both].mean() >= 0.999
-    dt = np.abs(t_k - t_r)
-    differ = both & (b_k != b_r)
-    assert (dt[differ] <= 1e-5 * np.abs(t_r[differ])).all()
-    sph = both & (prim_type[np.maximum(b_r, 0)] == PRIM_SPHERE)
-    tri = both & ~sph
-    np.testing.assert_allclose(t_k[tri], t_r[tri], rtol=1e-5, atol=0)
-    np.testing.assert_allclose(t_k[sph], t_r[sph], rtol=1e-5, atol=2e-4)
+def _march_bit_equal(args):
+    """The march kernel on ``args`` against its twin: t and best to the
+    bit, the same slots per chunk; one launch counted. Returns the
+    kernel's (t, best, slots) as numpy."""
+    before = cluster_sweep.MARCH_LAUNCHES
+    got = [x.cpu().numpy() for x in cluster_sweep.march(*args)]
+    assert cluster_sweep.MARCH_LAUNCHES == before + 1
+    ref = [x.cpu().numpy() for x in cluster_sweep.march_reference(*args)]
+    assert cluster_sweep.MARCH_LAUNCHES == before + 1
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x, y)
+    return got
 
 
 @pytest.mark.parametrize("name", ["camera", "bounce", "dead"])
@@ -82,15 +80,78 @@ def test_march_kernel_matches_twin(gpu, name, n):
     ct = build_cluster_tables(scene, K=64)
     o, d = _wavefront(name, cam, n, gpu)
     q = cluster_sweep.march_inputs(ct, o, d, T_MIN)
-    before = cluster_sweep.MARCH_LAUNCHES
-    t_k, b_k, s_k = (x.cpu().numpy() for x in cluster_sweep.march(
-        *q["args"]))
-    assert cluster_sweep.MARCH_LAUNCHES == before + 1
-    t_r, b_r, s_r = (x.cpu().numpy() for x in cluster_sweep.march_reference(
-        *q["args"]))
-    assert cluster_sweep.MARCH_LAUNCHES == before + 1
-    _assert_hits_match(t_k, b_k, t_r, b_r, ct.scene.prim_type.cpu().numpy())
-    assert abs(int(s_k.sum()) - int(s_r.sum())) <= 0.001 * s_r.sum()
+    t_k, b_k, s_k = _march_bit_equal(q["args"])
+    assert s_k.sum() > 0 and (b_k >= 0).sum() > 10
+
+
+@pytest.mark.parametrize("ray_tile", [32, 96, 128, 256, 1024])
+@pytest.mark.parametrize("n", [1, 129, 1001, 20000])
+def test_march_kernel_tiles_and_ragged_counts_match_twin(gpu, ray_tile, n):
+    """Chunks of 32 to 1,024 rays (8 groups of 32 threads to one group of
+    512) and wavefronts that are no multiple of the chunk (march_inputs
+    pads them with dead lanes), on camera rays."""
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, n, gpu)
+    q = cluster_sweep.march_inputs(ct, o, d, T_MIN, ray_tile=ray_tile)
+    _march_bit_equal(q["args"])
+
+
+@pytest.mark.parametrize("sort_rays", [False, True])
+def test_march_kernel_shadow_query_matches_twin(gpu, sort_rays):
+    """NEE shadow segments from camera hits to points above the bunny:
+    t_min K_SHADOW_T_MIN and t_max 1, which also clamps the gate; in
+    caller order, as the query runs, and sorted."""
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, 20000, gpu)
+    _, t, valid = cluster_sweep.cluster_march(ct, o, d, T_MIN)
+    p = o + t[:, None] * d
+    light = torch.from_numpy(np.random.default_rng(3).uniform(
+        (-6, 2, -6), (6, 12, 6), (20000, 3)).astype(np.float32)).to(gpu)
+    seg = torch.where(valid[:, None], light - p, 0.0)
+    q = cluster_sweep.march_inputs(ct, p, seg, K_SHADOW_T_MIN, active=valid,
+                                   t_max=1.0, sort_rays=sort_rays)
+    t_k, b_k, _ = _march_bit_equal(q["args"])
+    assert (b_k >= 0).sum() > 100 and (t_k[b_k >= 0] < 1.0).all()
+
+
+def _march_tie_args(dev):
+    """march arguments in which each chunk visits two clusters that hold
+    the same primitives, the higher-indexed one first (the tie scene's
+    K=8 tables with the cluster of its first triangle copied into another
+    one), with rays that all meet that triangle: the twin keeps the
+    earlier slot's winner. Returns (args, winner index)."""
+    scene, o, d = _tie_scene(dev)
+    ct = build_cluster_tables(scene, K=8)
+    K, C_tot = ct.K, ct.cols.shape[0]
+    row = int(torch.nonzero(ct.perm == 0)[0, 0])
+    c_a = row // K
+    c_b = c_a + 1 if c_a + 1 < ct.C_reg else c_a - 1
+    cols = ct.cols.clone()
+    sph = ct.is_sphere.view(C_tot, K).clone()
+    ranges = ct.ranges.clone()
+    cols[c_b], sph[c_b], ranges[c_b] = cols[c_a], sph[c_a], ranges[c_a]
+    n = 896
+    o = o[:n].clone()
+    o[:, 0] = o[:, 0] * 0.5          # inside the triangle
+    o[:, 1] = o[:, 1] * 0.5 - 0.15
+    d = d[:n]
+    n_chunks = n // 128
+    hi_c, lo_c = max(c_a, c_b), min(c_a, c_b)
+    ids = torch.tensor([[hi_c, lo_c, 0]] * n_chunks, dtype=torch.int32,
+                       device=dev)
+    ents = torch.tensor([[0.0, 0.0, BIG]] * n_chunks, device=dev)
+    gate = torch.full((n,), 10.0, device=dev)
+    args = (ray_features(o, d).contiguous(), vec.dot(d, d).contiguous(),
+            gate, ids, ents, cols, sph, ranges, K, T_MIN, BIG, 128)
+    return args, hi_c * K + row % K
+
+
+def test_march_kernel_cross_slot_tie_keeps_the_earlier_slot(gpu):
+    args, winner = _march_tie_args(gpu)
+    t_k, b_k, s_k = _march_bit_equal(args)
+    assert (s_k == 2).all() and (b_k == winner).all()
 
 
 def test_march_wrapper_rejects_bad_inputs(gpu):
@@ -106,6 +167,13 @@ def test_march_wrapper_rejects_bad_inputs(gpu):
     bad[1] = args[1].cpu()
     with pytest.raises(ValueError):
         cluster_sweep.march(*bad)
+    for bad_r, err in ((args[7].long(), TypeError),
+                       (args[7][1:].contiguous(), ValueError),
+                       (args[7].cpu(), ValueError)):
+        bad = list(args)
+        bad[7] = bad_r
+        with pytest.raises(err):
+            cluster_sweep.march(*bad)
 
 
 def test_small_render_matches_cpu(gpu):
@@ -416,10 +484,12 @@ print("no error")
     assert "device-side assert" in out.stderr, out.stderr[-2000:]
 
 
-@pytest.mark.parametrize("kernel", ["dense", "window"])
+@pytest.mark.parametrize("kernel", ["dense", "window", "march",
+                                    "march id"])
 def test_sweep_kernels_assert_ranges_off_the_tables(gpu, kernel):
     """A range past the end of its tile or cluster fails the kernel's
-    device-side assert (each case in a process of its own)."""
+    device-side assert, and so does a march cluster id past the tables
+    (each case in a process of its own)."""
     here = os.path.dirname(os.path.abspath(__file__))
     if kernel == "dense":
         call = """
@@ -429,7 +499,7 @@ kt[2] = kt[2] + 424
 o, d = t._wavefront("camera", cam, 512, dev)
 t.pallas_sweep.sweep(*t.pallas_sweep.sweep_inputs(kt, o, d, 1e-3))
 """
-    else:
+    elif kernel == "window":
         call = """
 scene, cam = t.get_world("bunny", device=dev)
 ct = t.build_cluster_tables(scene, K=128)
@@ -437,6 +507,17 @@ o, d = t._wavefront("camera", cam, 512, dev)
 args = list(t._window_args(ct, o, d, "fallback"))
 args[6] = args[6] + 1
 t.cluster_sweep.window_sweep(*args)
+"""
+    else:
+        change = ("args[7] = args[7] + 1" if kernel == "march" else
+                  "args[3] = args[3] + args[5].shape[0]")
+        call = f"""
+scene, cam = t.get_world("bunny", device=dev)
+ct = t.build_cluster_tables(scene, K=64)
+o, d = t._wavefront("camera", cam, 512, dev)
+args = list(t.cluster_sweep.march_inputs(ct, o, d, 1e-3)["args"])
+{change}
+t.cluster_sweep.march(*args)
 """
     code = f"""
 import sys, torch

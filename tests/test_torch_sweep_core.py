@@ -18,6 +18,8 @@ kernels, on the CPU through their plain twins.
 The kernels themselves are held against the twins on the card
 (``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -364,3 +366,224 @@ def test_group_split_gives_the_twins_result(scene_name, G, rt):
     if scene_name == "tie":
         hit_tri = (b_ref == 0)
         assert hit_tri.sum() > 20 and not (b_ref == 5).any()
+
+
+# --- the march (cluster_march.cu): real-row ranges and an exact split ---
+
+
+@pytest.fixture(scope="module")
+def bunny64():
+    """The bunny's K=64 cluster tables (the main path's) and its camera."""
+    scene, cam = get_world("bunny", device="cpu")
+    return dict(ct=build_cluster_tables(scene, K=64), cam=cam)
+
+
+def _march_masked(phi, a, gate, ids, ents, cols, is_sphere, valid_row,
+                  ctype, K, t_min, t_max, ray_tile):
+    """The march twin as it was before it took ranges: every row of each
+    cluster swept under its ``valid_row`` mask, primitives typed by the
+    cluster's ``ctype`` (1 all-sphere, 2 all-triangle, 0 by row)."""
+    n_chunks, n_slots = ids.shape
+    P = phi.view(n_chunks, ray_tile, -1)
+    A = a.view(n_chunks, ray_tile)
+    G = gate.view(n_chunks, ray_tile)
+    t_acc = torch.full((n_chunks, ray_tile), BIG)
+    b_acc = torch.full((n_chunks, ray_tile), -1, dtype=torch.int32)
+    slots = torch.zeros(n_chunks, dtype=torch.int32)
+    marching = torch.ones(n_chunks, dtype=torch.bool)
+    for j in range(n_slots):
+        m = torch.amax(torch.minimum(t_acc, G), dim=1)
+        marching = marching & (m > ents[:, j])
+        live = torch.nonzero(marching).squeeze(1)
+        if live.numel() == 0:
+            break
+        slots += marching.to(torch.int32)
+        c = ids[live, j].long()
+        S = contract(P[live], cols[c])
+        ct = ctype[c][:, None, None]
+        sph = (ct == 1) | ((ct == 0) & (is_sphere[c][:, None, :] != 0))
+        t_eff = _epilogue(S[..., 0:K], S[..., K:2 * K], S[..., 2 * K:3 * K],
+                          S[..., 3 * K:4 * K], A[live][:, :, None], sph,
+                          valid_row[c][:, None, :] != 0, t_min, t_max)
+        local_j = torch.argmin(t_eff, dim=2)
+        local_t = torch.amin(t_eff, dim=2)
+        better = local_t < t_acc[live]
+        glob = (c[:, None] * K + local_j).to(torch.int32)
+        t_acc[live] = torch.where(better, local_t, t_acc[live])
+        b_acc[live] = torch.where(better, glob, b_acc[live])
+    return t_acc.reshape(-1), b_acc.reshape(-1), slots
+
+
+def _march_case(ct, cam, wave, n=512):
+    """march_inputs of one wavefront on the K=64 bunny: camera rays, a
+    bounce-like wavefront, the same with dead lanes (one chunk all dead),
+    or NEE shadow segments from the camera hits to points above the bunny
+    (t_min K_SHADOW_T_MIN, t_max 1, caller order)."""
+    if wave == "camera":
+        o, d = _camera(cam, n, 11)
+        return tsweep.march_inputs(ct, o, d, T_MIN)
+    if wave == "shadow":
+        o, d = _camera(cam, n, 12)
+        idx, t, valid = tsweep.cluster_march(ct, o, d, T_MIN)
+        p = o + t[:, None] * d
+        light = torch.from_numpy(np.random.default_rng(13).uniform(
+            (-6, 2, -6), (6, 12, 6), (n, 3)).astype(np.float32))
+        seg = torch.where(valid[:, None], light - p, 0.0)
+        return tsweep.march_inputs(ct, p, seg, K_SHADOW_T_MIN, active=valid,
+                                   t_max=1.0, sort_rays=False)
+    o, d = (x[:n].copy() for x in _bounce_rays(7))
+    if wave == "dead":
+        d[::5] = 0.0
+        d[:128] = 0.0
+    return tsweep.march_inputs(ct, torch.from_numpy(o), torch.from_numpy(d),
+                               T_MIN)
+
+
+@pytest.mark.parametrize("wave", ["camera", "bounce", "dead", "shadow"])
+def test_march_twin_with_ranges_equals_masked_sweep(bunny64, wave):
+    """The twin over each cluster's real rows, primitives typed by their
+    own rows, gives the (t, best, slots) of the full masked sweep typed
+    by cluster."""
+    ct = bunny64["ct"]
+    q = _march_case(ct, bunny64["cam"], wave)
+    args = q["args"]
+    got = tsweep.march_reference(*args)
+    C_tot = ct.cols.shape[0]
+    names = list(inspect.signature(tsweep.march_reference).parameters)
+    kw = dict(zip(names, args))
+    del kw["ranges"]
+    ref = _march_masked(**kw, valid_row=ct.valid_row.view(C_tot, ct.K),
+                        ctype=ct.ctype)
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    assert int(got[2].sum()) > 0
+    if wave != "dead":
+        assert (got[1] >= 0).sum() > 10
+    if wave == "shadow":
+        assert (got[0][got[1] >= 0] < 1.0).all()
+
+
+def test_march_twin_rejects_ranges_off_the_cluster(bunny64):
+    ct = bunny64["ct"]
+    args = list(_march_case(ct, bunny64["cam"], "camera", n=128)["args"])
+    for bad in ((3, 1, ct.K + 1), (0, 0, -1), (5, 0, 40)):
+        r = ct.ranges.clone()
+        r[bad[0], bad[1]] = bad[2]
+        if bad[0] == 5:
+            r[5] = torch.tensor([40, 30])
+        args[7] = r
+        with pytest.raises(ValueError, match="leaves"):
+            tsweep.march_reference(*args)
+
+
+def _unsigned(x):
+    return torch.where(x < 0, 2 ** 32 - 1, x.long())
+
+
+def _march_split(phi, a, gate, ids, ents, cols, is_sphere, ranges, K, t_min,
+                 t_max, ray_tile, groups, end_merge=False):
+    """Plain emulation of the march kernel's split: per slot, group g walks
+    the staged rows lo + g, lo + g + G, ... of the cluster with a strict
+    ``<``; the groups' results are merged by smaller t, then smaller index
+    (the cluster's first minimum) and folded into the running best with a
+    strict ``<``, slot by slot; the stop test reads the folded bests.
+    ``end_merge`` instead merges every slot's result into the running best
+    by (t, index), the rule that is wrong across slots."""
+    n_chunks, n_slots = ids.shape
+    P = phi.view(n_chunks, ray_tile, -1)
+    A = a.view(n_chunks, ray_tile)
+    Gt = gate.view(n_chunks, ray_tile)
+    t_run = torch.full((n_chunks, ray_tile), BIG)
+    i_run = torch.full((n_chunks, ray_tile), -1, dtype=torch.int64)
+    slots = torch.zeros(n_chunks, dtype=torch.int32)
+    marching = torch.ones(n_chunks, dtype=torch.bool)
+    k = torch.arange(K)
+    for j in range(n_slots):
+        m = torch.amax(torch.minimum(t_run, Gt), dim=1)
+        marching = marching & (m > ents[:, j])
+        live = torch.nonzero(marching).squeeze(1)
+        if live.numel() == 0:
+            break
+        slots += marching.to(torch.int32)
+        c = ids[live, j].long()
+        lo, hi = ranges[c, 0:1].long(), ranges[c, 1:2].long()
+        swept = (k[None, :] >= lo) & (k[None, :] < hi)          # (L, K)
+        S = contract(P[live], cols[c])
+        t_eff = _epilogue(S[..., 0:K], S[..., K:2 * K], S[..., 2 * K:3 * K],
+                          S[..., 3 * K:4 * K], A[live][:, :, None],
+                          is_sphere[c][:, None, :] != 0, swept[:, None, :],
+                          t_min, t_max)                       # (L, T, K)
+        bt = torch.full(t_eff.shape[:2], BIG)
+        bi = torch.full(t_eff.shape[:2], -1, dtype=torch.int64)
+        for g in range(groups):
+            mine = swept & ((k[None, :] - lo) % groups == g)
+            tg = torch.where(mine[:, None, :], t_eff, BIG)
+            jg = torch.argmin(tg, dim=2)
+            tgm = torch.amin(tg, dim=2)
+            ig = torch.where(tgm < BIG, c[:, None] * K + jg, -1)
+            take = (tgm < bt) | ((tgm == bt) & (_unsigned(ig) <
+                                                _unsigned(bi)))
+            bt = torch.where(take, tgm, bt)
+            bi = torch.where(take, ig, bi)
+        t_prev, i_prev = t_run[live], i_run[live]
+        take = bt < t_prev
+        if end_merge:
+            take = take | ((bt == t_prev) & (_unsigned(bi) <
+                                             _unsigned(i_prev)))
+        t_run[live] = torch.where(take, bt, t_prev)
+        i_run[live] = torch.where(take, bi, i_prev)
+    return (t_run.reshape(-1), i_run.reshape(-1).to(torch.int32), slots)
+
+
+def _cross_slot_tie():
+    """march arguments in which each chunk visits two clusters that hold
+    the same primitives, the higher-indexed one first: the tie scene's K=8
+    tables with the cluster of its first triangle copied into another, and
+    rays that all meet that triangle at t ~ 3, bit-equal in both copies."""
+    scene = _tie_scene()
+    ct = build_cluster_tables(scene, K=8)
+    K, C_tot = ct.K, ct.cols.shape[0]
+    row = int(torch.nonzero(ct.perm == 0)[0, 0])
+    c_a = row // K
+    c_b = c_a + 1 if c_a + 1 < ct.C_reg else c_a - 1
+    cols, sph = ct.cols.clone(), ct.is_sphere.view(C_tot, K).clone()
+    ranges = ct.ranges.clone()
+    cols[c_b], sph[c_b], ranges[c_b] = cols[c_a], sph[c_a], ranges[c_a]
+    n, ray_tile = 256, 128
+    rng = np.random.default_rng(21)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = rng.uniform(-0.3, 0.3, n)    # inside the triangle
+    o[:, 1] = rng.uniform(-0.5, 0.2, n)
+    o[:, 2] = 3.0
+    o, d = torch.from_numpy(o), torch.tensor([[0.0, 0.0, -1.0]]).repeat(n, 1)
+    n_chunks = n // ray_tile
+    hi_c, lo_c = max(c_a, c_b), min(c_a, c_b)
+    ids = torch.tensor([[hi_c, lo_c, 0]] * n_chunks, dtype=torch.int32)
+    ents = torch.tensor([[0.0, 0.0, BIG]] * n_chunks)
+    gate = torch.full((n,), 10.0)
+    args = (ray_features(o, d), vec.dot(d, d), gate, ids, ents, cols, sph,
+            ranges, K, T_MIN, BIG, ray_tile)
+    return args, hi_c, lo_c, row % K
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["camera", "bounce", "shadow", "tie"])
+def test_march_group_split_gives_the_twins_result(bunny64, case, G):
+    if case == "tie":
+        args, hi_c, lo_c, k = _cross_slot_tie()
+    else:
+        args = _march_case(bunny64["ct"], bunny64["cam"], case, n=384)[
+            "args"]
+    ref = tsweep.march_reference(*args)
+    got = _march_split(*args, groups=G)
+    for x, y in zip(got, ref):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    if case == "tie":
+        K = args[8]
+        # both slots march, the earlier (higher-indexed) cluster wins, and
+        # merging the slots by (t, index) would pick the later one
+        assert (ref[2] == 2).all()
+        assert ((ref[0] - 3.0).abs() < 1e-5).all()
+        assert (ref[1] == hi_c * K + k).all()
+        wrong = _march_split(*args, groups=G, end_merge=True)
+        assert (wrong[1] == lo_c * K + k).all()
