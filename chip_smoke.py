@@ -44,11 +44,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    reference): the bunny, cornell-full through the dense sweep with NEE,
    the bunny in the Cornell room with NEE on the march, and the bunny on
    the rounds route with the Sobol sampler, Russian roulette and black
-   termination.
+   termination;
+6. differentiable (``render/diff``), each step with the launch counters
+   reset just before it and read just after: (a) the inverse-rendering
+   fit of ``examples/inverse_rendering.py`` at the cornell-diff preset's
+   full size (64x64, 8 spp, depth 2, NEE) through the dense sweep
+   (``accel="pallas"``): the target rendered with the true albedos, the
+   start at albedo * 0.3 + 0.45, 30 Adam steps at lr 0.05 on a frozen
+   noise realization; the loss must fall tenfold and the albedo error
+   fall; (b) one forward and backward of the bunny's mean linear image at
+   the bench shape (640x360, 8 spp, depth 4, 57,600-ray chunks) through
+   the march, with respect to the albedos: finite and nonzero; (c)
+   gradients with respect to albedo, emit and v0 on the card against the
+   CPU twins at 32x32, 2 spp, depth 3: cornell-diff through the dense
+   sweep, the bunny through the march (rtol 1e-4, atol 1e-7, over the
+   pixels, at least 97%, whose image agrees within 1e-4 on both).
 
 The line before the last is a JSON object with each kernel's route,
-source, launches on its main path, error, times and bound; the last line is
-``{"ok": true, "device": {...}}``.
+source, launches on its main path (and, for the march and the dense
+sweep, ``diff_launches`` on the differentiable path), error, times and
+bound; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
 
@@ -59,6 +74,14 @@ and the kernel's own device time (``torch.profiler``, the mean over 20
 launches), beside the card's name and power limit. With DIR it imports
 ``pathtracer_tpu_torch`` from that checkout instead of this one, so one
 command can time two versions of the kernels on one card, in turns.
+
+    python3 chip_smoke.py --launches [DIR]
+
+renders the triangle world at 1 spp (phase 4's profiled render) once to
+warm up and once under ``torch.profiler``, with the port imported from
+DIR, and prints its wall, the device's busy share and every kernel's
+launches and device time, most launched first: the parent's tree and this
+one, run in turns, show which ops a change adds to a render.
 """
 from __future__ import annotations
 
@@ -80,10 +103,12 @@ DEVICE = "cuda"
 RAYS = 57600           # bunny chunk
 TRI_RAYS = 90000       # triangle world chunk (800x450 / 4)
 CORNELL_RAYS = 65536   # cornell-full chunk (256x256)
+BUNNY_PRIMS = 3619     # assets/bunny.obj's 3,616 faces and three spheres
 TRIANGLE_SPP = 100     # the reference's default; cut spp first for time
 BENCH_REPS = 20        # timed calls per wavefront or launch in --bench
 T_MIN = 1e-3
 ROUNDS_K = 128         # the rounds strategy needs K % 128 == 0
+FIT_STEPS = 30         # Adam steps of the inverse-rendering fit
 ROUNDS_ENV = {"PT_CLUSTER_STRATEGY": "rounds", "PT_CLUSTER_K": str(ROUNDS_K)}
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
@@ -255,10 +280,21 @@ def kind_order(kind: str):
         else (1, int(kind.split()[1]))
 
 
-def profile_render(cli, name, argv, kernel, card, torch, env=None):
+def triangle_argv(spp):
+    """The CLI's arguments for the triangle world at the reference's
+    default size and depth, through the dense sweep, at ``spp``."""
+    return ["--scene", "triangle", "--width", "800", "--height", "450",
+            "--spp", str(spp), "--max-depth", "50", "--accel", "pallas",
+            "--ray-chunk", str(TRI_RAYS)]
+
+
+def profile_render(cli, name, argv, kernel, card, torch, env=None,
+                   by_kernel=False):
     """One render of ``argv`` under torch.profiler (device activity only):
     the device's busy share of the wall, the kernels launched, and the
-    share of the device time and of the wall taken by ``kernel``."""
+    share of the device time and of the wall taken by ``kernel``; with
+    ``by_kernel``, also every kernel's launches and device time, most
+    launched first."""
     from torch.profiler import ProfilerActivity, profile
     with environ(env or {}):
         args = cli.build_parser().parse_args(argv + ["--device", DEVICE])
@@ -268,14 +304,19 @@ def profile_render(cli, name, argv, kernel, card, torch, env=None):
             _, wall, _, _ = cli.render_cli(args)
     device_us = kernel_us = 0.0
     n_all = n_kernel = 0
+    rows = []
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0)))
+        rows.append((e.count, us, e.key))
         device_us += us
         n_all += e.count
         if kernel in e.key:
             kernel_us += us
             n_kernel += e.count
+    if by_kernel:
+        for count, us, key in sorted(rows, key=lambda r: (-r[0], r[2])):
+            print(f"  {count} launches, {us / 1e3:.3f} ms: {key}")
     if device_us <= 0.0:
         print(f"{name} under torch.profiler: device time not measured (the "
               f"profiler recorded none)")
@@ -503,6 +544,137 @@ def ms_text(ms, slots=0) -> str:
     return f"device {ms:.4f} ms{per_slot}"
 
 
+def differentiable(dev, card, march_img):
+    """Phase 6 (module docstring), each step with every launch counter
+    reset just before it and read just after; ``march_img`` is phase 4's
+    bunny render. Returns (dense sweep launches of the fit, march launches
+    of the bunny gradient)."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    from pathtracer_tpu_torch.presets import get_preset
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.renderer import padded_pixel_grid
+    from pathtracer_tpu_torch.scene.worlds import get_world
+
+    def reset_counts():
+        cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
+        pallas_sweep.SWEEP_LAUNCHES = 0
+
+    def read_counts():
+        return (cluster_sweep.MARCH_LAUNCHES, pallas_sweep.SWEEP_LAUNCHES,
+                cluster_sweep.WINDOW_LAUNCHES)
+
+    # 6a. the inverse-rendering fit at the cornell-diff preset's size
+    scene_d, cam_d, cfg_d = get_preset("cornell-diff", device=dev)
+    cfg_d = cfg_d.replace(accel="pallas")
+    rows, cols = padded_pixel_grid(
+        cfg_d, min(cfg_d.ray_chunk, cfg_d.num_pixels), dev)
+    target = diff.render_linear(scene_d, cam_d, prng.PRNGKey(0), rows, cols,
+                                cfg_d, cfg_d.spp)[:cfg_d.num_pixels]
+    start = scene_d._replace(albedo=scene_d.albedo * 0.3 + 0.45)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    fitted, history = diff.fit(start, cam_d, target, cfg_d, steps=FIT_STEPS,
+                               lr=0.05, param_fields=("albedo",), seed=0,
+                               resample=False)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / FIT_STEPS
+    fit_counts = read_counts()
+    fit_peak = torch.cuda.max_memory_allocated()
+    mae0 = float((start.albedo - scene_d.albedo).abs().mean())
+    mae1 = float((fitted["albedo"] - scene_d.albedo).abs().mean())
+    print(f"fit cornell-diff {cfg_d.width}x{cfg_d.height} {cfg_d.spp} spp "
+          f"depth {cfg_d.max_depth}, NEE, accel pallas, {FIT_STEPS} Adam "
+          f"steps at lr 0.05: loss {history[0]:.6g} -> {history[-1]:.6g} "
+          f"(x{history[-1] / history[0]:.4g}), albedo MAE {mae0:.5f} -> "
+          f"{mae1:.5f}, {step_s:.4f} s per step, peak memory "
+          f"{fit_peak / 2**20:.1f} MiB, {fit_counts[1]} sweep launches, "
+          f"{fit_counts[0]} march launches [{card}]")
+    if not np.isfinite(history).all() or history[-1] >= 0.1 * history[0]:
+        fail(f"the fit did not cut its loss tenfold: {history}")
+    if not mae1 < mae0:
+        fail(f"the fit did not lower the albedo error: {mae0} -> {mae1}")
+    if fit_counts[1] <= 0 or fit_counts[0] or fit_counts[2]:
+        fail(f"the fit launched {fit_counts} (march, sweep, window) kernels")
+
+    # 6b. the bunny at the bench shape through the march: one forward and
+    # backward with respect to the albedos
+    scene_b, cam_b = get_world("bunny", device=dev)
+    cfg_b = RenderConfig(width=640, height=360, spp=8, max_depth=4,
+                         ray_chunk=RAYS, accel="cluster", scene="bunny")
+    rows, cols = padded_pixel_grid(cfg_b, RAYS, dev)
+    params = diff.scene_params(scene_b, ("albedo",))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = diff.render_linear(diff.apply_params(scene_b, params), cam_b,
+                             prng.PRNGKey(0), rows, cols, cfg_b, cfg_b.spp)
+    loss = img.mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bunny_counts = read_counts()
+    bunny_peak = torch.cuda.max_memory_allocated()
+    grad = params["albedo"].grad.cpu().numpy()
+    print(f"bunny gradient {cfg_b.width}x{cfg_b.height} {cfg_b.spp} spp depth "
+          f"{cfg_b.max_depth}, chunk {RAYS}, accel cluster: forward "
+          f"{t1 - t0:.4f} s, backward {t2 - t1:.4f} s, peak memory "
+          f"{bunny_peak / 2**20:.1f} MiB, {bunny_counts[0]} march launches, "
+          f"|d mean / d albedo| max {np.abs(grad).max():.6g} [{card}]")
+    if not np.isfinite(grad).all() or not np.abs(grad).sum() > 0.0:
+        fail(f"the bunny's albedo gradient is not finite and nonzero: {grad}")
+    if bunny_counts[0] <= 0 or bunny_counts[1] or bunny_counts[2]:
+        fail(f"the bunny gradient launched {bunny_counts} (march, sweep, "
+             f"window) kernels")
+    # its forward is the forward render's, gamma aside
+    lin = img.detach()[:cfg_b.num_pixels].clamp(min=0.0).sqrt()
+    diff_img = np.abs(lin.reshape(march_img.shape).cpu().numpy() - march_img)
+    print(f"bunny differentiable forward vs the render: "
+          f"{float((diff_img <= 1e-4).mean()):.5f} of channels within 1e-4, "
+          f"max |diff| {diff_img.max():.3g}")
+    if (diff_img <= 1e-4).mean() < 0.99:
+        fail("the bunny's differentiable forward disagrees with its render")
+
+    # 6c. gradients on the card against the CPU twins, small
+    small = dict(width=32, height=32, spp=2, max_depth=3, ray_chunk=1024)
+    for name, make, cfg, kernel in (
+            ("cornell-diff (pallas, NEE)",
+             lambda d: get_preset("cornell-diff", device=d)[:2],
+             cfg_d.replace(**small), 1),
+            ("bunny (cluster)", lambda d: get_world("bunny", device=d),
+             RenderConfig(accel="cluster", scene="bunny", **small), 0)):
+        reset_counts()
+        close, kept, g_grads, c_grads = diff.paired_gradients(
+            make, cfg, (dev, "cpu"))
+        launched = read_counts()[kernel]
+        errs, bad = [], []
+        for f in g_grads:
+            err = np.abs(g_grads[f] - c_grads[f])
+            ratio = float((err / (1e-7 + 1e-4 * np.abs(c_grads[f]))).max())
+            errs.append(f"{f} max |diff| {err.max():.3g} ({ratio:.3g} of "
+                        f"the tolerance)")
+            if not (np.isfinite(g_grads[f]).all() and ratio <= 1.0):
+                bad.append(f)
+        print(f"gradients {name} card vs CPU twins: {close:.5f} of image "
+              f"channels within 1e-4, {kept:.5f} of pixels kept; "
+              + "; ".join(errs))
+        if bad:
+            fail(f"{name}: the card's {', '.join(bad)} gradients disagree "
+                 f"with the CPU twins' beyond rtol 1e-4, atol 1e-7")
+        if launched <= 0 or close < 0.99 or kept < 0.97:
+            fail(f"{name}: {launched} kernel launches on the card, image "
+                 f"agreement {close}, pixels kept {kept}")
+    return fit_counts[1], bunny_counts[0]
+
+
 def bench(tree: str, reps: int = BENCH_REPS) -> int:
     """The three kernels alone on the inputs of phases 3a, 3b and 3c, with
     ``pathtracer_tpu_torch`` imported from ``tree``."""
@@ -545,12 +717,36 @@ def bench(tree: str, reps: int = BENCH_REPS) -> int:
     return 0
 
 
+def launch_list(tree: str) -> int:
+    """The triangle world at 1 spp through the CLI's code path, once to
+    warm up and once under torch.profiler, with ``pathtracer_tpu_torch``
+    imported from ``tree``: its wall, device busy share and every kernel's
+    launches."""
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    try:
+        from pathtracer_tpu_torch import __main__ as cli
+    except ImportError as e:
+        fail(f"no pathtracer_tpu_torch in {tree} ({e})")
+    card = card_line()
+    print(f"launches: {os.path.dirname(os.path.dirname(cli.__file__))} "
+          f"[{card}]", flush=True)
+    cli.render_cli(cli.build_parser().parse_args(
+        triangle_argv(1) + ["--device", DEVICE]))
+    profile_render(cli, "triangle world at 1 spp", triangle_argv(1),
+                   "dense_sweep_kernel", card, torch, by_kernel=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Chip smoke test of the "
                                  "PyTorch/CUDA port.")
     ap.add_argument("--bench", nargs="?", const=HERE, metavar="DIR",
                     help="time the three kernels alone, with the port "
                     "imported from DIR (default: this checkout)")
+    ap.add_argument("--launches", nargs="?", const=HERE, metavar="DIR",
+                    help="profile the triangle world at 1 spp, with the "
+                    "port imported from DIR, and list its kernels' launches")
     opts = ap.parse_args()
     try:
         import torch
@@ -560,6 +756,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: no GPU, nothing to test")
     if opts.bench:
         return bench(opts.bench)
+    if opts.launches:
+        return launch_list(opts.launches)
     sys.path.insert(0, HERE)
     try:
         from pathtracer_tpu_torch.ops import (_cuda_build, cluster_sweep,
@@ -575,6 +773,7 @@ def main() -> int:
     from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
     from pathtracer_tpu_torch.presets import combined_scene, get_preset
     from pathtracer_tpu_torch.render.renderer import make_renderer
+    from pathtracer_tpu_torch.scene.bunny import ASSET_OBJ, resolve_bunny_obj
     from pathtracer_tpu_torch.scene.worlds import get_world
 
     # 1. device
@@ -605,8 +804,12 @@ def main() -> int:
                                            in summary):
             fail("the march kernel spills (ptxas above)")
 
-    # 3a. the cluster march against its twin
+    # 3a. the cluster march against its twin, on the vendored scan (every
+    # bunny phase measures it, not the procedural stand-in mesh)
     scene, _ = get_world("bunny", device=dev)
+    if resolve_bunny_obj() != ASSET_OBJ or scene.num_prims != BUNNY_PRIMS:
+        fail(f"the bunny is not {ASSET_OBJ} ({scene.num_prims} prims, "
+             f"expected {BUNNY_PRIMS})")
     ct, (o_cam, d_cam), march_waves = march_wavefronts(dev)
     prim_type = ct.scene.prim_type.cpu().numpy()
     march_err = 0.0
@@ -787,10 +990,6 @@ def main() -> int:
     mean = check_image("cornell-full", img_np, (256, 256, 3), 0.05, 0.9)
     report("cornell-full", seconds, cfg, stats, counts, mean)
 
-    def triangle_argv(spp):
-        return ["--scene", "triangle", "--width", "800", "--height", "450",
-                "--spp", str(spp), "--max-depth", "50", "--accel", "pallas",
-                "--ray-chunk", str(TRI_RAYS)]
     img_np, seconds, cfg, stats, counts = run_cli(
         triangle_argv(TRIANGLE_SPP),
         os.path.join(out, "chip_smoke_triangle.png"))
@@ -881,20 +1080,25 @@ def main() -> int:
     if cluster_sweep.WINDOW_LAUNCHES <= 0:
         fail("the small rounds render launched no window kernel")
 
+    # 6. the differentiable pass
+    fit_sweeps, grad_marches = differentiable(dev, card, march_img)
+
     k2 = sweep["triangle camera"]
     k3 = window["round 1"]
     print(json.dumps({"kernels": [{
         "name": "cluster_march", "route": "cuda",
         "source": "pathtracer_tpu_torch/csrc/cluster_march.cu",
         "replaces": "pathtracer_tpu/ops/cluster_sweep.py:446",
-        "launches": march_launches, "max_abs_err": march_err,
+        "launches": march_launches, "diff_launches": grad_marches,
+        "max_abs_err": march_err,
         "ms": march["camera"][0], "plain_ms": march["camera"][1],
         "bound_ms": march["camera"][2], "bound_by": march["camera"][3],
         "library_ms": None}, {
         "name": "dense_sweep", "route": "cuda",
         "source": "pathtracer_tpu_torch/csrc/dense_sweep.cu",
         "replaces": "pathtracer_tpu/ops/pallas_sweep.py:41",
-        "launches": triangle_launches, "max_abs_err": sweep_err,
+        "launches": triangle_launches, "diff_launches": fit_sweeps,
+        "max_abs_err": sweep_err,
         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2],
         "bound_by": k2[3], "library_ms": None}, {
         "name": "window_sweep", "route": "cuda",

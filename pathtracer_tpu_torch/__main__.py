@@ -1,17 +1,21 @@
 """CLI: render a scene or a preset to PNG on the GPU.
 
 Usage:
+    python -m pathtracer_tpu_torch            # the reference's defaults
     python -m pathtracer_tpu_torch --scene bunny --width 640 --height 360 \\
         --spp 8 --max-depth 4 --ray-chunk 57600 -o out.png
     python -m pathtracer_tpu_torch --preset cornell-full --accel pallas \\
         --ray-chunk 65536 -o out/cornell.png
 
-The render runs on ``cuda``; ``--device cpu`` runs the plain PyTorch
+With no flags it renders what ``python -m pathtracer_tpu`` renders: the
+triangle world at 800x450, 100 spp, depth 50, in 16,384-ray chunks. The
+render runs on ``cuda``; ``--device cpu`` runs the plain PyTorch
 twins instead (for tests, at small sizes). The cluster route reads the
 reference's knobs from the environment (``render/renderer.cluster_options``):
 
     PT_CLUSTER_STRATEGY=rounds PT_CLUSTER_K=128 \\
-        python -m pathtracer_tpu_torch --scene bunny --ray-chunk 57600 \\
+        python -m pathtracer_tpu_torch --scene bunny --width 640 \\
+        --height 360 --spp 8 --max-depth 4 --ray-chunk 57600 \\
         -o out/bunny_rounds.png
 """
 from __future__ import annotations
@@ -28,20 +32,21 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtracer_tpu_torch",
         description="PyTorch/CUDA port of the path tracer")
-    p.add_argument("--scene", default="bunny", choices=SCENES)
+    p.add_argument("--scene", default="triangle", choices=SCENES)
     p.add_argument("--preset", default=None,
                    help="named configuration (cornell-direct / "
-                        "cornell-full / bunny / combined-1080p); overrides "
-                        "scene, size, spp and depth")
+                        "cornell-full / cornell-diff / bunny / "
+                        "combined-1080p); overrides scene, size, spp and "
+                        "depth")
     p.add_argument("--scale", type=float, default=1.0,
                    help="resolution and spp factor applied to --preset")
-    p.add_argument("--width", type=int, default=640)
-    p.add_argument("--height", type=int, default=360)
-    p.add_argument("--spp", type=int, default=8)
-    p.add_argument("--max-depth", type=int, default=4)
+    p.add_argument("--width", type=int, default=800)
+    p.add_argument("--height", type=int, default=450)
+    p.add_argument("--spp", type=int, default=100)
+    p.add_argument("--max-depth", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ray-chunk", type=int, default=None,
-                   help="rays per wavefront chunk (default 57600; with "
+                   help="rays per wavefront chunk (default 16384; with "
                         "--preset, the preset's)")
     p.add_argument("--accel", default=None,
                    choices=["auto", "cluster", "tensor", "pallas", "brute"],
@@ -100,7 +105,7 @@ def scene_and_config(args, device):
     cornell = args.scene == "cornell"
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        max_depth=args.max_depth, accel=args.accel or "auto",
-                       seed=args.seed, ray_chunk=args.ray_chunk or 57600,
+                       seed=args.seed, ray_chunk=args.ray_chunk or 16384,
                        sky=not (args.no_sky or cornell),
                        nee=args.nee or cornell,
                        terminate_black=args.terminate_black, rr=args.rr,

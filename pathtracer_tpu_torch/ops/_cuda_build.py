@@ -141,9 +141,11 @@ def ptxas_summary(log: str) -> list:
 
 
 def check_arg(x, name: str, dtype, shape, device) -> None:
-    """Raise unless tensor ``x`` has ``dtype``, ``shape``, is contiguous and
-    lies on ``device``: what a kernel wrapper checks before it passes a
-    pointer."""
+    """Raise unless tensor ``x`` has ``dtype``, ``shape``, is contiguous,
+    lies on ``device`` and carries no autograd history (a kernel has no
+    backward): what a kernel wrapper checks before it passes a pointer."""
+    if x.requires_grad:
+        raise ValueError(f"{name} requires grad; pass it detached")
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):

@@ -88,7 +88,11 @@ def _median_midpoint(x):
 
 
 def build_cluster_tables(scene: Scene, K: int = 128) -> ClusterTables:
-    """Cluster the scene's primitives on the scene's device."""
+    """Cluster the scene's primitives on the scene's device. The tables are
+    built from detached rows, so no kernel input carries autograd history;
+    the reordered ``scene`` is the caller's rows gathered by ``perm`` (the
+    padding rows constants), so gradients of what is shaded with it reach
+    the caller's tensors."""
     if K % 8 != 0 or K < K_RES:
         raise ValueError("cluster size K must be a multiple of 8, >= K_RES")
     dev = scene.device
@@ -97,7 +101,7 @@ def build_cluster_tables(scene: Scene, K: int = 128) -> ClusterTables:
     total = (C_reg + 1) * K
 
     rows = _pad_prim_rows(scene, total)
-    box_min, box_max = rows["box_min"], rows["box_max"]
+    box_min, box_max = rows["box_min"].detach(), rows["box_max"].detach()
 
     # classify: padding rows have inverted boxes (negative extent)
     extent = torch.amax(box_max - box_min, dim=-1)
@@ -123,7 +127,6 @@ def build_cluster_tables(scene: Scene, K: int = 128) -> ClusterTables:
                       torch.where(huge, _KEY_HUGE | code, code))
 
     perm = torch.sort(key, stable=True).indices
-    reordered = {nm: x[perm] for nm, x in rows.items()}
 
     # remap the light list to the new row positions
     inv = torch.empty_like(perm)
@@ -132,12 +135,14 @@ def build_cluster_tables(scene: Scene, K: int = 128) -> ClusterTables:
     if scene.num_lights > 0:
         light_idx = torch.sort(inv[light_idx.long()]).values.to(torch.int32)
 
-    new_scene = scene._replace(light_idx=light_idx, **reordered)
-    tables = pack_sweep_tables(new_scene, tile=K)
+    new_scene = scene._replace(light_idx=light_idx,
+                               **{nm: x[perm] for nm, x in rows.items()})
+    packed = Scene(*(x.detach() for x in new_scene))
+    tables = pack_sweep_tables(packed, tile=K)
     assert tables.tile == K and tables.cols.shape[0] == C_reg + 1
 
-    cmin = reordered["box_min"][:C_reg * K].reshape(C_reg, K, 3).amin(dim=1)
-    cmax = reordered["box_max"][:C_reg * K].reshape(C_reg, K, 3).amax(dim=1)
+    cmin = packed.box_min[:C_reg * K].reshape(C_reg, K, 3).amin(dim=1)
+    cmax = packed.box_max[:C_reg * K].reshape(C_reg, K, 3).amax(dim=1)
 
     any_s = (tables.is_sphere & tables.valid_row).any(dim=1)
     any_t = (~tables.is_sphere & tables.valid_row).any(dim=1)

@@ -120,9 +120,15 @@ def hit_records_from_prims(scene: Scene, idx, o, d, t_min, t_max, valid,
     outward = torch.where(is_sphere[:, None], sph_n, tri_n)
     front_face, normal = rays_mod.set_face_normal(d, outward)
 
-    # sphere UV; triangles leave uv = 0
+    # sphere UV; triangles leave uv = 0. acos has an infinite derivative
+    # at the poles (|y| = 1), which would NaN the v0 gradient; under
+    # autograd the value is taken at y and the gradient at y clipped a step
+    # inside (as the reference does)
     y = torch.clamp(-sph_n[:, 1], -1.0, 1.0)
     theta = torch.acos(y)
+    if theta.requires_grad:
+        theta_safe = torch.acos(torch.clamp(y, -1.0 + 1e-6, 1.0 - 1e-6))
+        theta = theta_safe + (theta - theta_safe).detach()
     x, z = sph_n[:, 0], -sph_n[:, 2]
     on_pole = (x * x + z * z) < 1e-12
     phi = torch.atan2(torch.where(on_pole, 0.0, z),

@@ -8,9 +8,9 @@ sizes; ``python -m pathtracer_tpu_torch --preset <name>`` runs one.
 | cornell-direct   | Cornell diffuse spheres, depth 2, 16 spp, 256x256     |
 | cornell-full     | Cornell full materials + textures, depth 4, 64 spp    |
 | bunny            | the bunny world, depth 4, 128 spp, 800x450            |
+| cornell-diff     | Cornell spheres, 64x64, 8 spp, depth 2, NEE, brute:   |
+|                  | the fixture of the differentiable pass (render/diff)  |
 | combined-1080p   | bunny inside the Cornell room, 1080p, 512 spp         |
-
-``cornell-diff`` (the differentiable pass's fixture) is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,22 +24,24 @@ from pathtracer_tpu_torch.io.obj import load_obj
 from pathtracer_tpu_torch.scene.bunny import bunny_world, resolve_bunny_obj
 from pathtracer_tpu_torch.scene.cornell import add_cornell_room, cornell_box
 from pathtracer_tpu_torch.scene.scene import Scene, SceneBuilder
+from pathtracer_tpu_torch.scene.standalone_assets import bunny_standin
 
-PRESETS = ("cornell-direct", "cornell-full", "bunny", "combined-1080p")
+PRESETS = ("cornell-direct", "cornell-full", "cornell-diff", "bunny",
+           "combined-1080p")
 
 
 def combined_scene(aspect: float = 16.0 / 9.0,
                    device="cuda") -> Tuple[Scene, Camera]:
     """The bunny mesh standing in the Cornell room (scaled to ~250 units,
-    centred on the floor) with a mirror and a glass sphere."""
+    centred on the floor) with a mirror and a glass sphere; the procedural
+    stand-in mesh when no bunny OBJ is found."""
     b = SceneBuilder()
     add_cornell_room(b)
     obj_path = resolve_bunny_obj()
-    if obj_path is None:
-        raise NotImplementedError(
-            "no bunny OBJ found and the procedural stand-in mesh is not "
-            "ported yet (ROADMAP Queue 1, item 7); set PT_BUNNY_OBJ")
-    verts, faces = load_obj(obj_path)
+    if obj_path is not None:
+        verts, faces = load_obj(obj_path)
+    else:
+        verts, faces = bunny_standin()
     verts = verts.astype(np.float64)
     lo, hi = verts.min(0), verts.max(0)
     scale = 250.0 / float((hi - lo).max())
@@ -73,9 +75,10 @@ def get_preset(name: str, device="cuda"):
             width=256, height=256, spp=64, max_depth=4, sky=False,
             nee=True, stratify=True, accel="auto", scene="cornell")
     if name == "cornell-diff":
-        raise NotImplementedError(
-            "preset 'cornell-diff' drives the differentiable pass, which is "
-            "not ported yet (ROADMAP Queue 1, item 10)")
+        scene, cam = cornell_box(variant="spheres", device=device)
+        return scene, cam, RenderConfig(
+            width=64, height=64, spp=8, max_depth=2, sky=False, nee=True,
+            accel="brute", scene="cornell")
     if name == "bunny":
         scene, cam = bunny_world(device=device)
         return scene, cam, RenderConfig(

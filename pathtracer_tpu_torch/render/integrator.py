@@ -26,6 +26,15 @@ With ``rr`` (Russian roulette), from bounce ``rr_depth`` on a continuing
 path survives with probability K_RR_CONTINUE and its attenuation is scaled
 by K_RR_INV_CONTINUE; the kill applies to the continuation only, so the
 bounce's own emission and light sample keep their full weight.
+
+With ``differentiable``, visibility is detached: every closest-hit and
+shadow query gets detached rays, in caller order (no sorted protocol), and
+gradients reach the scene only through the hit fields re-evaluated from
+the winner indices (``ops/intersect.hit_records_from_prims``), the
+materials, the lights and the accumulation. The reference needs a
+fixed-trip ``lax.scan`` there because reverse-mode AD cannot cross a
+``lax.while_loop``; autograd crosses the Python ``while``, and the trips
+after the last live lane would do nothing, so the early exit stays.
 """
 from __future__ import annotations
 
@@ -69,7 +78,7 @@ def make_brute_closest_hit(scene: Scene, t_min: float):
 def trace(scene: Scene, origin, direction, key, max_depth: int,
           closest_hit_fn, t_min: float = 1e-3, sky: bool = True,
           terminate_black: bool = False, nee: bool = False, rr: bool = False,
-          rr_depth: int = 3):
+          rr_depth: int = 3, differentiable: bool = False):
     """Trace a wavefront of rays; returns (radiance (N, 3), (closest-hit
     queries, shadow queries, march pair tests)) executed.
 
@@ -78,12 +87,16 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     ``query_sorted`` and ``ray_tile`` (the cluster march) and
     ``handles_dead``; with ``nee`` it needs ``query_shadow`` (the shadow
     query, as every route of ``render/renderer`` has). ``rr`` turns on
-    Russian roulette from bounce ``rr_depth`` on (module docstring)."""
+    Russian roulette from bounce ``rr_depth`` on; ``differentiable``
+    queries in caller order (module docstring). A query whose result
+    carries autograd history (tables built from a scene that requires
+    grad) raises: visibility must be detached."""
     n_rays = origin.shape[0]
     dev = origin.device
     use_nee = nee and scene.num_lights > 0
     handles_dead = getattr(closest_hit_fn, "handles_dead", False)
-    query_sorted = getattr(closest_hit_fn, "query_sorted", None)
+    query_sorted = (None if differentiable
+                    else getattr(closest_hit_fn, "query_sorted", None))
     tile = getattr(closest_hit_fn, "ray_tile", 1)
     sorted_mode = query_sorted is not None and n_rays % tile == 0
     packed = intersect.packed_hit_fields(scene)
@@ -116,7 +129,7 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
             if use_nee:
                 extras += (prev_pdf,)
             idx, _, hit_valid, o, d, alive, ex, pairs = query_sorted(
-                o, d, alive, extras)
+                o.detach(), d.detach(), alive, extras)
             n_pairs += pairs
             atten = torch.stack(ex[0:3], dim=1)
             flags = ex[3]
@@ -130,7 +143,13 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
         else:
             d_query = torch.where(alive[:, None], d, 0.0) if handles_dead \
                 else d
-            idx, _, hit_valid = closest_hit_fn(o, d_query)
+            idx, t_hit, hit_valid = closest_hit_fn(o.detach(),
+                                                   d_query.detach())
+            if t_hit.requires_grad:
+                raise RuntimeError(
+                    "the closest-hit query carries autograd history: build "
+                    "its tables from a detached scene (render/renderer."
+                    "make_query)")
         uniforms = prng.uniform_by_ray(bkey, rid, 6)
         rec = intersect.hit_records_from_prims(
             scene, idx, o, d, t_min, intersect.BIG_T, hit_valid,

@@ -84,7 +84,8 @@ def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
     against BSDF sampling. The shadow ray starts ``eps`` off the surface
     along the normal and runs along the unnormalized segment to the light
     point, so the light sits at t == 1: a hit with t < 1 - eps occludes.
-    The segment goes to ``closest_hit_fn.query_shadow`` (near-zero t_min).
+    The segment goes to ``closest_hit_fn.query_shadow`` (near-zero t_min),
+    detached.
     ``active`` (R,) bool: rays whose result is discarded query with
     d == 0."""
     point, n_l, emit, pdf = sample_lights(scene, u)
@@ -96,7 +97,8 @@ def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
     cos_l = torch.abs(vec.dot(n_l, seg)) * inv_dist  # double-sided emitter
 
     seg_q = seg if active is None else torch.where(active[:, None], seg, 0.0)
-    _, t_sh, sh_valid = closest_hit_fn.query_shadow(origin, seg_q, active)
+    _, t_sh, sh_valid = closest_hit_fn.query_shadow(origin.detach(),
+                                                    seg_q.detach(), active)
     unoccluded = (~sh_valid) | (t_sh >= 1.0 - eps)
 
     is_glossy, r_unit, fuzz = glossy

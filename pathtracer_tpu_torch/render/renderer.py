@@ -19,8 +19,16 @@ carries a shadow query for NEE. ``stratify`` jitters sample s inside
 stratum (s mod m^2) of an m x m sub-pixel grid, m the largest integer with
 m^2 dividing ``cfg.spp``; ``sampler="sobol"`` takes the pixel jitter from
 a per-pixel Owen-scrambled Sobol point instead (and overrides
-``stratify``). The BVH route and the differentiable render raise
-``NotImplementedError`` naming their ROADMAP item.
+``stratify``). The BVH route raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+Kernel-facing tables are always built from the detached scene, so no
+kernel input carries autograd history; the scene a query shades with
+stays connected to the caller's tensors (on the cluster route, their rows
+gathered in cluster order). ``render_sum(differentiable=True)`` is the
+differentiable pass of ``render/diff``: visibility detached, gradients
+through the re-evaluated hits, materials, lights and accumulation
+(``render/integrator``).
 """
 from __future__ import annotations
 
@@ -63,13 +71,14 @@ def check_supported(cfg: RenderConfig) -> None:
 def cluster_options():
     """(K, factory keywords) of the cluster route from the reference's
     environment knobs: ``PT_CLUSTER_K`` (default :data:`CLUSTER_K`),
-    ``PT_CLUSTER_STRATEGY`` ("march" or "rounds"), ``PT_CLUSTER_WINDOW``,
-    ``PT_CLUSTER_MAX_ROUNDS`` (the rounds strategy's) and
-    ``PT_CLUSTER_SORT=0`` (no binning sort). Read when a scene's route is
-    built, so a :class:`Renderer` keeps the route it built first."""
+    ``PT_CLUSTER_STRATEGY`` ("march" or "rounds"), ``PT_CLUSTER_RAY_TILE``
+    (rays per chunk), ``PT_CLUSTER_WINDOW``, ``PT_CLUSTER_MAX_ROUNDS`` (the
+    rounds strategy's) and ``PT_CLUSTER_SORT=0`` (no binning sort). Read
+    when a scene's route is built, so a :class:`Renderer` keeps the route
+    it built first."""
     K = int(os.environ.get("PT_CLUSTER_K") or CLUSTER_K)
     kw = {}
-    for name in ("window", "max_rounds"):
+    for name in ("ray_tile", "window", "max_rounds"):
         value = os.environ.get(f"PT_CLUSTER_{name.upper()}")
         if value:
             kw[name] = int(value)
@@ -95,7 +104,9 @@ def _with_shadow(factory, scene: Scene, t_min: float):
 
 def make_query(scene: Scene, cfg: RenderConfig) -> Query:
     """The closest-hit route ``cfg.accel`` selects for ``scene``, built on
-    the scene's device."""
+    the scene's device from its detached tensors; the query's scene is
+    ``scene`` itself, or on the cluster route its rows in cluster order
+    (``ClusterTables.scene``), so gradients reach the caller's tensors."""
     check_supported(cfg)
     accel = config_mod.resolve_accel(cfg.accel, scene.num_prims)
     if accel == "cluster":
@@ -105,7 +116,8 @@ def make_query(scene: Scene, cfg: RenderConfig) -> Query:
     factory = {"tensor": make_tensor_closest_hit,
                "pallas": make_pallas_closest_hit,
                "brute": integrator.make_brute_closest_hit}[accel]
-    return Query(_with_shadow(factory, scene, cfg.t_min), scene)
+    detached = Scene(*(x.detach() for x in scene))
+    return Query(_with_shadow(factory, detached, cfg.t_min), scene)
 
 
 def _stratum_grid(spp: int) -> int:
@@ -128,20 +140,30 @@ def _pixel_grid(width: int, height: int, n_padded: int, device):
             torch.cat([cols, cols.new_zeros(pad)]))
 
 
+def padded_pixel_grid(cfg: RenderConfig, multiple: int, device="cuda"):
+    """(rows, cols) flat f32 grids of ``cfg``'s image on ``device``,
+    zero-padded to a multiple of ``multiple``."""
+    n_padded = -(-cfg.num_pixels // multiple) * multiple
+    return _pixel_grid(cfg.width, cfg.height, n_padded, device)
+
+
 def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
                cfg: RenderConfig, spp: int, query: Optional[Query] = None,
-               differentiable: bool = False):
+               sample_offset: int = 0, differentiable: bool = False):
     """Radiance SUM (P, 3) over ``spp`` samples for a flat pixel wavefront
     (P a multiple of the chunk), not averaged or gamma'd, and the executed
     (closest-hit queries, shadow queries, march pair tests).
 
     ``query`` is :func:`make_query` of ``scene`` (built here when None);
-    shading uses its scene. Chunk keys derive from the first pixel's global
-    index, so a pixel's samples do not depend on the chunking."""
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable render is not ported yet (ROADMAP Queue 1, "
-            "item 10)")
+    shading uses its scene. ``sample_offset`` is the global index of the
+    first sample: sample s keys and stratifies as sample ``sample_offset +
+    s``. Chunk keys derive from the first pixel's global index, so a
+    pixel's samples do not depend on the chunking. ``differentiable`` runs
+    the integrator's differentiable pass (caller-order detached queries);
+    the result then carries autograd history from ``scene``'s tensors."""
+    # full float32 everywhere: TF32 would round the sweep's operands
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if query is None:
         query = make_query(scene, cfg)
     check_supported(cfg)
@@ -159,7 +181,7 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
 
     acc = torch.zeros((n_padded, 3), dtype=torch.float32, device=dev)
     n_queries = n_shadow = n_pairs = 0.0
-    for s in range(spp):
+    for s in range(sample_offset, sample_offset + spp):
         skey = prng.fold_in(base_key, s)
         stratum = s % (m_strat * m_strat)
         sx, sy = float(stratum % m_strat), float(stratum // m_strat)
@@ -189,7 +211,7 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
                 query.scene, o, d, tkey, cfg.max_depth, query.closest,
                 t_min=cfg.t_min, sky=cfg.sky,
                 terminate_black=cfg.terminate_black, nee=cfg.nee, rr=cfg.rr,
-                rr_depth=cfg.rr_depth)
+                rr_depth=cfg.rr_depth, differentiable=differentiable)
             acc[sl] += radiance
             n_queries += nq
             n_shadow += nsh
@@ -208,9 +230,6 @@ class Renderer:
         self.device = torch.device(device)
         self.with_stats = with_stats
         self._queries: dict = {}   # id(scene) -> (scene, Query)
-        # full float32 everywhere: TF32 would round the sweep's operands
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
     def prepare(self, scene: Scene) -> Query:
         """The cached :class:`Query` of ``scene`` on this device."""
@@ -226,10 +245,8 @@ class Renderer:
         cfg = self.cfg
         check_supported(cfg)
         n_pixels = cfg.num_pixels
-        chunk = min(cfg.ray_chunk, n_pixels)
-        n_padded = -(-n_pixels // chunk) * chunk
-        rows, cols = _pixel_grid(cfg.width, cfg.height, n_padded,
-                                 self.device)
+        rows, cols = padded_pixel_grid(cfg, min(cfg.ray_chunk, n_pixels),
+                                       self.device)
         base_key = prng.PRNGKey(cfg.seed if seed is None else seed)
         acc, stats = render_sum(scene, cam.to(self.device), base_key, rows,
                                 cols, cfg, cfg.spp, self.prepare(scene))

@@ -3,12 +3,14 @@ ground sphere under the sky, flanked by a mirror and a glass sphere."""
 from __future__ import annotations
 
 import os
+import sys
 from typing import Tuple
 
 from pathtracer_tpu_torch.config import K_ASPECT_RATIO
 from pathtracer_tpu_torch.core.camera import Camera, make_camera
 from pathtracer_tpu_torch.io.obj import load_obj
 from pathtracer_tpu_torch.scene.scene import Scene, SceneBuilder
+from pathtracer_tpu_torch.scene.standalone_assets import bunny_standin
 
 # The vendored decimated scan (1,817 v / 3,616 f) under the repo's assets/.
 ASSET_OBJ = os.path.join(
@@ -33,11 +35,13 @@ def bunny_world(obj_path: str | None = None, scale: float = 20.0,
             "bunny subdivision is not ported yet (ROADMAP Queue 1, item 9)")
     if obj_path is None:
         obj_path = resolve_bunny_obj()
-    if obj_path is None or not os.path.exists(obj_path):
-        raise NotImplementedError(
-            "no bunny OBJ found and the procedural stand-in mesh is not "
-            "ported yet (ROADMAP Queue 1, item 7); set PT_BUNNY_OBJ")
-    verts, faces = load_obj(obj_path)
+    if obj_path is not None and os.path.exists(obj_path):
+        verts, faces = load_obj(obj_path)
+    else:
+        print(f"bunny_world: {obj_path} not found - using the procedural "
+              "stand-in mesh (set PT_BUNNY_OBJ for the Stanford bunny)",
+              file=sys.stderr)
+        verts, faces = bunny_standin()
     verts = verts * scale
     # center on origin, rest on y=0
     lo = verts.min(axis=0)

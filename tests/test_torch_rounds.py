@@ -285,16 +285,24 @@ def test_rounds_needs_k128(bunny, monkeypatch):
 
 
 def test_factory_and_environment_knobs(monkeypatch):
-    """``make_query`` reads the reference's five knobs in one place; the
+    """``make_query`` reads the reference's six knobs in one place; the
     rounds factory has no sorted protocol; an unknown strategy raises."""
     ts, _ = tworlds.get_world("test", device="cpu")
     cfg = TConfig(accel="cluster")
-    for var in ("PT_CLUSTER_K", "PT_CLUSTER_STRATEGY", "PT_CLUSTER_WINDOW",
-                "PT_CLUSTER_MAX_ROUNDS", "PT_CLUSTER_SORT"):
+    for var in ("PT_CLUSTER_K", "PT_CLUSTER_STRATEGY", "PT_CLUSTER_RAY_TILE",
+                "PT_CLUSTER_WINDOW", "PT_CLUSTER_MAX_ROUNDS",
+                "PT_CLUSTER_SORT"):
         monkeypatch.delenv(var, raising=False)
     assert trenderer.cluster_options() == (trenderer.CLUSTER_K, {})
     march = trenderer.make_query(ts, cfg).closest
     assert march.handles_dead and march.query_sorted and march.query_shadow
+    assert march.ray_tile == tsweep.DEF_RAY_TILE
+    # the chunk size reaches the march (and its sorted protocol), as
+    # PT_CLUSTER_RAY_TILE reaches the reference's factory
+    monkeypatch.setenv("PT_CLUSTER_RAY_TILE", "256")
+    assert trenderer.cluster_options() == (trenderer.CLUSTER_K,
+                                           dict(ray_tile=256))
+    assert trenderer.make_query(ts, cfg).closest.ray_tile == 256
     for var, value in (("PT_CLUSTER_K", "128"),
                        ("PT_CLUSTER_STRATEGY", "rounds"),
                        ("PT_CLUSTER_WINDOW", "2"),
@@ -302,7 +310,8 @@ def test_factory_and_environment_knobs(monkeypatch):
                        ("PT_CLUSTER_SORT", "0")):
         monkeypatch.setenv(var, value)
     assert trenderer.cluster_options() == (128, dict(
-        window=2, max_rounds=3, sort_rays=False, strategy="rounds"))
+        ray_tile=256, window=2, max_rounds=3, sort_rays=False,
+        strategy="rounds"))
     query = trenderer.make_query(ts, cfg)
     rounds = query.closest
     assert rounds.handles_dead and rounds.query_shadow

@@ -112,6 +112,8 @@ SIZE = ["--width", "16", "--height", "8", "--spp", "2", "--max-depth", "3",
      "--terminate-black", "--seed", "9"] + SIZE,
     ["--preset", "bunny", "--scale", "0.0625", "--sampler", "sobol", "--rr",
      "--rr-depth", "2"],
+    ["--preset", "cornell-diff", "--scale", "0.125"],
+    [],
 ])
 def test_cli_flags_match_reference(argv, monkeypatch, tmp_path):
     """The port's CLI builds the same RenderConfig as the reference's CLI
@@ -133,3 +135,19 @@ def test_cli_flags_match_reference(argv, monkeypatch, tmp_path):
     args = tcli.build_parser().parse_args(argv + ["--device", "cpu"])
     _, _, cfg = tcli.scene_and_config(args, "cpu")
     assert cfg.to_json() == seen["cfg"].to_json()
+
+
+def test_cli_defaults_match_reference():
+    """With no flags both CLIs parse the same values for every flag they
+    share: the triangle world, 800x450, 100 spp, depth 50, 16,384-ray
+    chunks (applied when the config is built)."""
+    port = vars(tcli.build_parser().parse_args([]))
+    ref = vars(jcli.build_parser().parse_args([]))
+    shared = set(port) & set(ref)
+    assert {"scene", "width", "height", "spp", "max_depth", "ray_chunk",
+            "accel", "preset", "scale", "output"} <= shared
+    assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}
+    _, _, cfg = tcli.scene_and_config(
+        tcli.build_parser().parse_args(["--scene", "test"]), "cpu")
+    assert (cfg.width, cfg.height, cfg.spp, cfg.max_depth, cfg.ray_chunk) \
+        == (800, 450, 100, 50, 16384)
