@@ -30,8 +30,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 4. main paths through the CLI's code path, each with every launch counter
    reset just before it and read just after: the bunny at 640x360, 8 spp,
    depth 4 (cluster march); cornell-full at 256x256, 64 spp, depth 4 with
-   NEE, stratified jitter and textures (dense sweep); the triangle world at
-   the reference's default, 800x450, 100 spp, depth 50 (dense sweep); the
+   NEE, stratified jitter and textures (dense sweep), in the CLI's passes
+   of 8 spp; the triangle world at the reference's default, 800x450, 100
+   spp, depth 50 (dense sweep), in 13 passes; the
    bunny again on the rounds route (PT_CLUSTER_STRATEGY=rounds,
    PT_CLUSTER_K=128: window sweep, no march), whose image must agree with
    the march's, with its window launches counted by kind; then the
@@ -58,11 +59,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    gradients with respect to albedo, emit and v0 on the card against the
    CPU twins at 32x32, 2 spp, depth 3: cornell-diff through the dense
    sweep, the bunny through the march (rtol 1e-4, atol 1e-7, over the
-   pixels, at least 97%, whose image agrees within 1e-4 on both).
+   pixels, at least 97%, whose image agrees within 1e-4 on both);
+7. large scenes and long renders, each step with the launch counters
+   reset just before it and read just after: (a) the march on the
+   57,600-ray camera wavefront of the bunny subdivided three times
+   (231,427 prims, 3,617 clusters), under the automatic plan (cull2, sup
+   8) and the flat cull, each bit-equal to its twin, with its slots, time,
+   whole-query time and peak memory; the two plans must agree (valid
+   flags equal, winners equal but at bit-equal t, t within rtol 1e-6);
+   (b) ``examples/big_scene.py`` at its defaults (level 2, 320x180, 4
+   spp, depth 4) and at level 3, each against the same render under the
+   other cull (>= 99.9% of channels within 1e-4), with the scene and
+   table builds timed; (c) the bunny at 640x360, 8 spp, depth 4 through
+   the CLI in passes of 2 with ``--checkpoint``, stopped after its second
+   pass and run again: the resumed image must equal the uninterrupted
+   pass render bit for bit and phase 4's one-pass image within 1e-6.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path (and, for the march and the dense
-sweep, ``diff_launches`` on the differentiable path), error, times and
+sweep, ``diff_launches`` on the differentiable path; for the march,
+``big_launches`` on the level-2 big-scene render), error, times and
 bound; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
@@ -109,6 +125,8 @@ BENCH_REPS = 20        # timed calls per wavefront or launch in --bench
 T_MIN = 1e-3
 ROUNDS_K = 128         # the rounds strategy needs K % 128 == 0
 FIT_STEPS = 30         # Adam steps of the inverse-rendering fit
+BIG_LEVEL = 3          # phase 7a's subdivided bunny: 3,617 clusters, cull2
+BIG_SCENE_LEVELS = (2, 3)   # phase 7b: the example's default, then level 3
 ROUNDS_ENV = {"PT_CLUSTER_STRATEGY": "rounds", "PT_CLUSTER_K": str(ROUNDS_K)}
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
@@ -518,6 +536,22 @@ def check_image(name, img_np, shape, lo, hi):
     return mean
 
 
+def stream_ms(fn, torch, reps: int = 20) -> float:
+    """Milliseconds per call of ``reps`` back-to-back calls of ``fn()``
+    after a warm-up, between two CUDA events: the device's time per call
+    where each call's work outlasts the host's time to launch it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def device_ms(fn, torch, reps: int, kernel: str):
     """Mean device time of the kernels named ``*kernel*`` that ``fn()``
     launches, over ``reps`` calls after a warm-up, from torch.profiler
@@ -544,6 +578,20 @@ def ms_text(ms, slots=0) -> str:
     return f"device {ms:.4f} ms{per_slot}"
 
 
+def reset_counts():
+    """Set the launch counter of every kernel wrapper to 0."""
+    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
+    pallas_sweep.SWEEP_LAUNCHES = 0
+
+
+def read_counts():
+    """(march, dense sweep, window sweep) launches since the last reset."""
+    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    return (cluster_sweep.MARCH_LAUNCHES, pallas_sweep.SWEEP_LAUNCHES,
+            cluster_sweep.WINDOW_LAUNCHES)
+
+
 def differentiable(dev, card, march_img):
     """Phase 6 (module docstring), each step with every launch counter
     reset just before it and read just after; ``march_img`` is phase 4's
@@ -553,19 +601,10 @@ def differentiable(dev, card, march_img):
     import torch
     from pathtracer_tpu_torch.config import RenderConfig
     from pathtracer_tpu_torch.core import random as prng
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
     from pathtracer_tpu_torch.presets import get_preset
     from pathtracer_tpu_torch.render import diff
     from pathtracer_tpu_torch.render.renderer import padded_pixel_grid
     from pathtracer_tpu_torch.scene.worlds import get_world
-
-    def reset_counts():
-        cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
-        pallas_sweep.SWEEP_LAUNCHES = 0
-
-    def read_counts():
-        return (cluster_sweep.MARCH_LAUNCHES, pallas_sweep.SWEEP_LAUNCHES,
-                cluster_sweep.WINDOW_LAUNCHES)
 
     # 6a. the inverse-rendering fit at the cornell-diff preset's size
     scene_d, cam_d, cfg_d = get_preset("cornell-diff", device=dev)
@@ -675,6 +714,186 @@ def differentiable(dev, card, march_img):
     return fit_counts[1], bunny_counts[0]
 
 
+def large_scenes(dev, card, march_img, run_cli, bunny_argv, out):
+    """Phase 7 (module docstring), every launch counter reset just before
+    each step and read just after; ``march_img`` is phase 4's one-pass
+    bunny image and ``run_cli`` phase 4's CLI runner. Returns the march
+    launches of the level-2 big-scene render."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.examples import big_scene
+    from pathtracer_tpu_torch.ops import cluster_sweep
+    from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+    from pathtracer_tpu_torch.render.renderer import CLUSTER_K, make_renderer
+    from pathtracer_tpu_torch.scene.bunny import bunny_world
+    from pathtracer_tpu_torch.utils import checkpoint
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    # 7a. the march on the level-3 bunny's camera wavefront, under the
+    # automatic plan (cull2) and the flat cull
+    (scene, cam), scene_s = timed(
+        lambda: bunny_world(subdivide=BIG_LEVEL, device=dev))
+    ct, table_s = timed(lambda: build_cluster_tables(scene, K=CLUSTER_K))
+    print(f"level-{BIG_LEVEL} bunny: {scene.num_prims} prims, {ct.C_reg} "
+          f"regular clusters of K={CLUSTER_K}; scene build {scene_s:.3f} s, "
+          f"table build {table_s:.3f} s [{card}]")
+    if cluster_sweep.cull_plan(ct.C_reg) != (True, 8):
+        fail(f"the level-{BIG_LEVEL} bunny's plan is "
+             f"{cluster_sweep.cull_plan(ct.C_reg)}, not cull2 with sup 8")
+    o, d = camera_wavefront(dev, cam, RAYS, 0)
+    prim_type = ct.scene.prim_type.cpu().numpy()
+    hits = {}
+    for name, cull2 in (("cull2 (auto)", None), ("flat", False)):
+        reset_counts()
+        q = cluster_sweep.march_inputs(ct, o, d, T_MIN, cull2=cull2)
+        args = q["args"]
+        kernel = cluster_sweep.march(*args)
+        torch.cuda.synchronize()
+        if read_counts() != (1, 0, 0):
+            fail(f"march {name}: launched {read_counts()} (march, sweep, "
+                 f"window) kernels")
+        twin, plain_s = timed(lambda: cluster_sweep.march_reference(*args))
+        t_k, b_k, s_k = (x.cpu().numpy() for x in kernel)
+        t_r, b_r, s_r = (x.cpu().numpy() for x in twin)
+        compare_hits(f"level-{BIG_LEVEL} march {name}", t_k, b_k, t_r, b_r,
+                     prim_type)
+        if not (np.array_equal(b_k, b_r) and np.array_equal(t_k, t_r)
+                and np.array_equal(s_k, s_r)):
+            fail(f"level-{BIG_LEVEL} march {name}: kernel and twin are not "
+                 f"bit-equal")
+        n_walk, p50, longest = march_walk(s_k)
+        ms = cuda_ms(lambda: cluster_sweep.march(*args), torch)
+        run_ms = stream_ms(lambda: cluster_sweep.march(*args), torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        idx, t, valid = cluster_sweep.cluster_march(ct, o, d, T_MIN,
+                                                    cull2=cull2)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        hits[name] = (idx.cpu().numpy(), t.cpu().numpy(), valid.cpu().numpy())
+        query_ms = cuda_ms(lambda: cluster_sweep.cluster_march(
+            ct, o, d, T_MIN, cull2=cull2), torch)
+        print(f"level-{BIG_LEVEL} march {name} (sup {q['sup']}, {RAYS} "
+              f"camera rays, {n_walk} of {s_k.shape[0]} chunks march, slots "
+              f"p50 {p50:g} / max {longest} of {args[3].shape[1]}, bit-equal "
+              f"to the twin): kernel {ms:.4f} ms, {run_ms:.4f} ms a launch "
+              f"over 20 back-to-back launches, "
+              f"{run_ms * 1e3 / longest:.3f} us per slot of the longest "
+              f"chunk; plain twin {plain_s * 1e3:.1f} ms; "
+              f"whole query {query_ms:.4f} ms, query peak memory "
+              f"{peak / 2**20:.1f} MiB above {base / 2**20:.1f} MiB "
+              f"[{card}]")
+    (i2, t2, v2), (i1, t1, v1) = hits["cull2 (auto)"], hits["flat"]
+    differ = v1 & (i1 != i2)
+    if not (np.array_equal(v1, v2) and np.array_equal(t1[differ], t2[differ])
+            and np.allclose(t2[v1], t1[v1], rtol=1e-6, atol=0.0)):
+        fail(f"level-{BIG_LEVEL}: cull2 and the flat cull disagree")
+    print(f"level-{BIG_LEVEL} cull2 vs flat: valid flags equal, {int(v1.sum())}"
+          f" hits, {int(differ.sum())} winners differ (at bit-equal t), max "
+          f"|dt| {float(np.abs(t2 - t1)[v1].max()):.3g}")
+    del scene, cam, ct, o, d, q, args, kernel, twin
+
+    # 7b. the big-scene example at its defaults (level 2) and at level 3,
+    # each against the same render under the other cull
+    big_launches = 0
+    for level in BIG_SCENE_LEVELS:
+        reset_counts()
+        r = big_scene.render_big_scene(level, device=dev)
+        counts = read_counts()
+        if counts[0] <= 0 or counts[1] or counts[2]:
+            fail(f"big scene level {level}: launched {counts} (march, sweep, "
+                 f"window) kernels")
+        if level == BIG_SCENE_LEVELS[0]:
+            big_launches = counts[0]
+        cfg = r["cfg"]
+        img = r["img"].numpy()
+        mean = check_image(f"big scene level {level}", img,
+                           (cfg.height, cfg.width, 3), 0.3, 0.95)
+        write_png_out(os.path.join(out, f"chip_smoke_big_l{level}.png"), img)
+        other = "0" if r["cull2"] else "1"
+        with environ({"PT_CLUSTER_CULL2": other}):
+            render = make_renderer(cfg, dev)
+            if render.prepare(r["scene"]).closest.cull_plan[0] == r["cull2"]:
+                fail(f"big scene level {level}: PT_CLUSTER_CULL2={other} "
+                     f"kept the plan")
+            alt = render(r["scene"], r["cam"]).cpu().numpy()
+        diff = np.abs(img - alt)
+        close = float((diff <= 1e-4).mean())
+        print(f"big scene level {level} ({r['prims']} prims, C_reg "
+              f"{r['C_reg']}, cull2 {'on' if r['cull2'] else 'off'}, sup "
+              f"{r['sup']}) {cfg.width}x{cfg.height} {cfg.spp} spp depth "
+              f"{cfg.max_depth}, chunk {cfg.ray_chunk}: wall {r['wall_s']:.4f}"
+              f" s ({cfg.num_pixels * cfg.spp * cfg.max_depth / r['wall_s'] / 1e6:.4f}"
+              f" Mrays/s nominal), scene build {r['scene_s']:.3f} s, table "
+              f"build {r['table_s']:.3f} s, {counts[0]} march launches, "
+              f"image mean {mean:.5f}, all finite; vs the other cull "
+              f"{close:.5f} of channels within 1e-4 [{card}]")
+        if close < 0.999:
+            fail(f"big scene level {level}: the image under the other cull "
+                 f"disagrees")
+        del r, render
+
+    # 7c. the bunny at the bench shape in passes of 2 spp with a
+    # checkpoint: stopped after the second pass and resumed
+    ck_dir = os.path.join(out, "chip_smoke_checkpoint")
+    os.makedirs(ck_dir, exist_ok=True)
+    full_ck = os.path.join(ck_dir, "full.ckpt.npz")
+    part_ck = os.path.join(ck_dir, "part.ckpt.npz")
+    for path in (full_ck, part_ck):
+        if os.path.exists(path):
+            os.unlink(path)
+    argv = bunny_argv + ["--spp-per-pass", "2"]
+    full, seconds, cfg, stats, counts = run_cli(
+        argv + ["--checkpoint", full_ck],
+        os.path.join(ck_dir, "full.png"))
+    save = checkpoint.save_render_state
+
+    def save_then_stop(path, acc, next_sample, *rest):
+        save(path, acc, next_sample, *rest)
+        if next_sample == 4:
+            raise KeyboardInterrupt
+    with mock.patch.object(checkpoint, "save_render_state", save_then_stop):
+        try:
+            run_cli(argv + ["--checkpoint", part_ck],
+                    os.path.join(ck_dir, "part.png"))
+            fail("the checkpointed bunny did not stop after its second pass")
+        except KeyboardInterrupt:
+            pass
+    state = checkpoint.load_render_state(part_ck, cfg, BUNNY_PRIMS)
+    if state is None or state[1] != 4:
+        fail(f"the stopped bunny's checkpoint holds {state and state[1]} spp")
+    resumed, res_s, _, _, res_counts = run_cli(
+        argv + ["--checkpoint", part_ck], os.path.join(ck_dir, "part.png"))
+    to_one_pass = float(np.abs(full - march_img).max())
+    print(f"bunny {cfg.width}x{cfg.height} {cfg.spp} spp in passes of 2 "
+          f"with a checkpoint: "
+          f"uninterrupted {seconds:.4f} s ({counts[0]} march launches), "
+          f"resumed after 4 spp {res_s:.4f} s ({res_counts[0]} march "
+          f"launches), resumed vs uninterrupted bit-equal "
+          f"{np.array_equal(resumed, full)}, max |pass render - one-pass "
+          f"render| {to_one_pass:.3g} [{card}]")
+    if counts[0] <= 0 or res_counts[0] <= 0 or counts[1] or counts[2]:
+        fail(f"the checkpointed bunny launched {counts} and {res_counts} "
+             f"(march, sweep, window) kernels")
+    if not np.array_equal(resumed, full):
+        fail("the resumed bunny is not bit-equal to the uninterrupted one")
+    if to_one_pass > 1e-6:
+        fail(f"the pass render is {to_one_pass} off the one-pass render")
+    return big_launches
+
+
+def write_png_out(path, img_np):
+    from pathtracer_tpu_torch.io.png import write_png
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_png(path, img_np)
+
+
 def bench(tree: str, reps: int = BENCH_REPS) -> int:
     """The three kernels alone on the inputs of phases 3a, 3b and 3c, with
     ``pathtracer_tpu_torch`` imported from ``tree``."""
@@ -768,7 +987,6 @@ def main() -> int:
 
     from pathtracer_tpu_torch import __main__ as cli
     from pathtracer_tpu_torch.config import RenderConfig
-    from pathtracer_tpu_torch.io.png import write_png
     from pathtracer_tpu_torch.ops import intersect, tensor_sweep
     from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
     from pathtracer_tpu_torch.presets import combined_scene, get_preset
@@ -940,16 +1158,11 @@ def main() -> int:
         args = cli.build_parser().parse_args(
             argv + ["--device", DEVICE, "-o", out_png])
         with environ(env or {}):
-            cluster_sweep.MARCH_LAUNCHES = 0
-            cluster_sweep.WINDOW_LAUNCHES = 0
-            pallas_sweep.SWEEP_LAUNCHES = 0
+            reset_counts()
             img, seconds, cfg, stats = cli.render_cli(args)
-            counts = (cluster_sweep.MARCH_LAUNCHES,
-                      pallas_sweep.SWEEP_LAUNCHES,
-                      cluster_sweep.WINDOW_LAUNCHES)
+            counts = read_counts()
         img_np = img.numpy()
-        os.makedirs(os.path.dirname(out_png), exist_ok=True)
-        write_png(out_png, img_np)
+        write_png_out(out_png, img_np)
         return img_np, seconds, cfg, stats, counts
 
     def report(name, seconds, cfg, stats, counts, mean):
@@ -1083,6 +1296,10 @@ def main() -> int:
     # 6. the differentiable pass
     fit_sweeps, grad_marches = differentiable(dev, card, march_img)
 
+    # 7. large scenes and long renders
+    big_launches = large_scenes(dev, card, march_img, run_cli, bunny_argv,
+                                out)
+
     k2 = sweep["triangle camera"]
     k3 = window["round 1"]
     print(json.dumps({"kernels": [{
@@ -1090,6 +1307,7 @@ def main() -> int:
         "source": "pathtracer_tpu_torch/csrc/cluster_march.cu",
         "replaces": "pathtracer_tpu/ops/cluster_sweep.py:446",
         "launches": march_launches, "diff_launches": grad_marches,
+        "big_launches": big_launches,
         "max_abs_err": march_err,
         "ms": march["camera"][0], "plain_ms": march["camera"][1],
         "bound_ms": march["camera"][2], "bound_by": march["camera"][3],

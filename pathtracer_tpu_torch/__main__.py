@@ -8,9 +8,12 @@ Usage:
         --ray-chunk 65536 -o out/cornell.png
 
 With no flags it renders what ``python -m pathtracer_tpu`` renders: the
-triangle world at 800x450, 100 spp, depth 50, in 16,384-ray chunks. The
-render runs on ``cuda``; ``--device cpu`` runs the plain PyTorch
-twins instead (for tests, at small sizes). The cluster route reads the
+triangle world at 800x450, 100 spp, depth 50, in 16,384-ray chunks, in
+passes of ``--spp-per-pass`` 8 samples (a render of more spp than that, or
+any render with ``--checkpoint FILE``, runs in passes; with a checkpoint,
+re-running the same command resumes where it stopped). The render runs on
+``cuda``; ``--device cpu`` runs the plain PyTorch twins instead (for
+tests, at small sizes). The cluster route reads the
 reference's knobs from the environment (``render/renderer.cluster_options``):
 
     PT_CLUSTER_STRATEGY=rounds PT_CLUSTER_K=128 \\
@@ -69,6 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--terminate-black", action="store_true",
                    help="depth-exhausted rays return black instead of "
                         "sky * attenuation")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file: accumulate spp in resumable "
+                        "passes; re-running resumes where it stopped")
+    p.add_argument("--spp-per-pass", type=int, default=8,
+                   help="samples per pass: a render of more spp, or any "
+                        "render with --checkpoint, runs in passes")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu runs the plain twins (tests only)")
     p.add_argument("-o", "--output", default="debug.png")
@@ -117,10 +126,16 @@ def scene_and_config(args, device):
 def render_cli(args):
     """Build the scene and config, render, return (image (H,W,3) CPU
     tensor, seconds, cfg, (closest-hit queries, shadow queries, march pair
-    tests)). Shared by the CLI and chip_smoke.py."""
+    tests)). Shared by the CLI and chip_smoke.py.
+
+    The reference's route: with ``--checkpoint``, or more spp than
+    ``--spp-per-pass``, the render runs in passes
+    (``utils/checkpoint.render_with_checkpoints``) with a progress line
+    after each; else in one."""
     import torch
 
     from pathtracer_tpu_torch.render.renderer import make_renderer
+    from pathtracer_tpu_torch.utils.checkpoint import render_with_checkpoints
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; the CLI renders on the GPU")
@@ -131,7 +146,16 @@ def render_cli(args):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     start = time.perf_counter()
-    img, stats = render(scene, cam)
+    if args.checkpoint or cfg.spp > args.spp_per_pass:
+        def show(done, total):
+            print(f"  {done}/{total} spp "
+                  f"({time.perf_counter() - start:.1f}s)", flush=True)
+
+        img, stats = render_with_checkpoints(
+            scene, cam, cfg, args.checkpoint,
+            spp_per_chunk=args.spp_per_pass, progress=show, renderer=render)
+    else:
+        img, stats = render(scene, cam)
     img = img.cpu()                 # waits for the device
     return img, time.perf_counter() - start, cfg, stats
 

@@ -18,6 +18,13 @@ over the same cluster tables.
 6. unsort by ray id, unless the caller keeps the sorted order
    (``extras``, the sorted-wavefront integrator).
 
+Large scenes (2,048 regular clusters or more, :func:`cull_plan`) take the
+reference's two-level cull, "cull2": steps 1-3 work on superclusters of
+``sup`` consecutive clusters (the per-ray cull stays near R x 512 entries
+instead of R x C_reg), each lane's gate is its farthest touched
+supercluster exit, and each chunk orders the clusters themselves by the
+interval cull of its ray bundle. The kernel does not change.
+
 Exact: each chunk stops only once every lane's best hit precedes all its
 unvisited clusters. Ties between different primitives at bit-equal t may
 pick another winner than the dense sweep's lowest-index rule.
@@ -37,6 +44,7 @@ a GPU they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -51,6 +59,8 @@ from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, FEAT, OUTS,
 DEF_RAY_TILE = 128
 DEF_WINDOW = 4       # clusters per round's window
 DEF_MAX_ROUNDS = 6
+# the cull plan's default switch to the two-level cull, in regular clusters
+CULL2_CLUSTERS = 2048
 STRATEGIES = ("march", "rounds")
 # round key of a resolved lane: sorts after every cluster index
 _RESOLVED_KEY = 0x3FFFFFFF
@@ -75,11 +85,15 @@ _WINDOW_PROTOTYPES = {"window_sweep_launch": (
     + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3)}
 
 
-def _cull_T(o, d, active, cmin, cmax, t_min):
-    """Conservative per-(cluster, ray) entry distances, (C_reg, R) f32;
-    BIG where the slab test misses or the ray is inactive. NaN-dropping
+def _cull_T(o, d, active, cmin, cmax, t_min, with_exit: bool = False):
+    """Conservative per-(cluster, ray) entry distances, (C, R) f32; BIG
+    where the slab test misses or the ray is inactive. NaN-dropping
     selects (``where(near > tn, near, tn)``) let ``0 * inf`` fall through
-    to the running bound, so d == 0 components are safe."""
+    to the running bound, so d == 0 components are safe.
+
+    ``with_exit`` also returns the raw slab exits (-BIG where the test
+    misses): the cull2 stop gate, since any hit a lane can still find lies
+    inside a touched box's [entry, exit]."""
     inv = 1.0 / d
     shape = (cmin.shape[0], o.shape[0])
     tn = torch.full(shape, t_min, dtype=torch.float32, device=o.device)
@@ -95,7 +109,97 @@ def _cull_T(o, d, active, cmin, cmax, t_min):
         tf = torch.where(far < tf, far, tf)
     hit = ~(tf < tn) & active[None, :]
     entry = tn - (_ENTRY_MARGIN * torch.abs(tn) + 1e-6)
-    return torch.where(hit, entry, BIG)
+    entry = torch.where(hit, entry, BIG)
+    if with_exit:
+        return entry, torch.where(hit, tf, -BIG)
+    return entry
+
+
+def _chunk_interval_cull(o, d, active, cmin, cmax, t_min, n_chunks,
+                         ray_tile):
+    """Conservative per-(chunk, cluster) entry lower bounds, (n_chunks, C)
+    f32: the cull2 march's member-granularity order.
+
+    An interval-arithmetic slab test of each chunk's ray bundle (the box
+    hull of its active lanes' origins times the interval hull of their
+    directions) against every cluster box. It lower-bounds every active
+    lane's margined entry, and is BIG where every lane provably misses or
+    the chunk has no active lane. An axis whose direction interval spans
+    zero bounds nothing (its 1/d interval is unbounded). O(n_chunks x C)
+    where the per-ray cull is O(R x C)."""
+    o3 = o.reshape(n_chunks, ray_tile, 3)
+    d3 = d.reshape(n_chunks, ray_tile, 3)
+    m = active.reshape(n_chunks, ray_tile, 1)
+    o_lo = torch.amin(torch.where(m, o3, BIG), dim=1)     # (n_chunks, 3)
+    o_hi = torch.amax(torch.where(m, o3, -BIG), dim=1)
+    d_lo = torch.amin(torch.where(m, d3, BIG), dim=1)
+    d_hi = torch.amax(torch.where(m, d3, -BIG), dim=1)
+    any_live = torch.any(m[:, :, 0], dim=1)               # (n_chunks,)
+    C = cmin.shape[0]
+    tn = torch.full((n_chunks, C), t_min, dtype=torch.float32,
+                    device=o.device)                       # LB of tn
+    tf = torch.full((n_chunks, C), BIG, dtype=torch.float32,
+                    device=o.device)                       # UB of tf
+    for ax in range(3):
+        dl = d_lo[:, ax:ax + 1]
+        dh = d_hi[:, ax:ax + 1]
+        # a direction interval touching zero leaves 1/d unbounded; the eps
+        # also guards a subnormal 1/d overflowing to inf
+        span0 = (dl <= 1e-30) & (dh >= -1e-30)
+        ia = 1.0 / dh
+        ib = 1.0 / dl
+        inv_lo = torch.minimum(ia, ib)
+        inv_hi = torch.maximum(ia, ib)
+        pl_lo = cmin[None, :, ax] - o_hi[:, ax:ax + 1]     # (n_chunks, C)
+        pl_hi = cmin[None, :, ax] - o_lo[:, ax:ax + 1]
+        ph_lo = cmax[None, :, ax] - o_hi[:, ax:ax + 1]
+        ph_hi = cmax[None, :, ax] - o_lo[:, ax:ax + 1]
+
+        def ip_lo(a_lo, a_hi):
+            return torch.minimum(
+                torch.minimum(a_lo * inv_lo, a_lo * inv_hi),
+                torch.minimum(a_hi * inv_lo, a_hi * inv_hi))
+
+        def ip_hi(a_lo, a_hi):
+            return torch.maximum(
+                torch.maximum(a_lo * inv_lo, a_lo * inv_hi),
+                torch.maximum(a_hi * inv_lo, a_hi * inv_hi))
+
+        # a lane's near is min(A, B) and its far max(A, B) of its two slab
+        # distances (cmax >= cmin)
+        near_lb = torch.minimum(ip_lo(pl_lo, pl_hi), ip_lo(ph_lo, ph_hi))
+        far_ub = torch.maximum(ip_hi(pl_lo, pl_hi), ip_hi(ph_lo, ph_hi))
+        tn = torch.maximum(tn, torch.where(span0, -BIG, near_lb))
+        tf = torch.minimum(tf, torch.where(span0, BIG, far_ub))
+    miss = tf < tn                      # every lane misses
+    ent = tn - (_ENTRY_MARGIN * torch.abs(tn) + 1e-6)
+    return torch.where(miss | ~any_live[:, None], BIG, ent)
+
+
+def cull_plan(C_reg: int, cull2=None, sup=None,
+              cull2_clusters: int = CULL2_CLUSTERS):
+    """(cull2, sup): the reference's cull plan for C_reg regular clusters.
+    ``cull2`` None switches the two-level cull on at ``cull2_clusters``
+    clusters or more; ``sup`` None is ceil(C_reg / 512) under cull2 (the
+    per-ray cull stays near R x 512) and 1 (no superclusters) without."""
+    if cull2 is None:
+        cull2 = C_reg >= cull2_clusters
+    if sup is None:
+        sup = max(1, -(-C_reg // 512)) if cull2 else 1
+    if sup < 1:
+        raise ValueError(f"supercluster size must be positive, got {sup}")
+    return bool(cull2), int(sup)
+
+
+def _super_boxes(cmin, cmax, sup):
+    """The boxes of ``sup`` consecutive clusters (min / max over each
+    group; the trailing group padded with inverted boxes)."""
+    C_reg = cmin.shape[0]
+    pad = -(-C_reg // sup) * sup - C_reg
+    smin = torch.cat([cmin, cmin.new_full((pad, 3), BIG)])
+    smax = torch.cat([cmax, cmax.new_full((pad, 3), -BIG)])
+    return (smin.view(-1, sup, 3).amin(dim=1),
+            smax.view(-1, sup, 3).amax(dim=1))
 
 
 def _cull(o, d, active, cmin, cmax, t_min):
@@ -215,20 +319,33 @@ def march(phi, a, gate, ids, ents, cols, is_sphere, ranges, K: int,
 
 
 def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
-                 active=None, extras=None, t_max=None, sort_rays=True):
+                 active=None, extras=None, t_max=None, sort_rays=True,
+                 cull2=None, sup=None):
     """Steps 1-3 of the query (cull, bin, order) and the residual sweep;
     ``sort_rays`` False keeps the caller's lane order (no binning sort).
+
+    The cull plan (:func:`cull_plan`, the reference's rule from C_reg where
+    ``cull2`` or ``sup`` is None): with ``sup`` > 1 the per-ray cull, the
+    bin key and the gate work on superclusters, the boxes of ``sup``
+    consecutive clusters. Without cull2 each supercluster slot of a chunk's
+    order expands to its ``sup`` members in id order, each with the
+    supercluster's entry (the trailing group repeats the last cluster).
+    Under cull2 each lane's gate is its farthest touched supercluster exit,
+    and each chunk orders the clusters themselves by the larger of two
+    lower bounds of their entry: the interval cull of the chunk's ray
+    bundle and their supercluster's chunk entry.
 
     Returns a dict with the sorted rays (``o``, ``d``, ``active``,
     ``active0`` in caller order, ``rid`` the caller position of each
     sorted lane, ``extras``), the kernel inputs
     (``args`` of :func:`march`: phi, a, gate, ids, ents, cols, is_sphere,
-    ranges, K, t_min, t_max, ray_tile) and the residual winners (``t_res``,
-    ``b_res``)."""
+    ranges, K, t_min, t_max, ray_tile), the residual winners (``t_res``,
+    ``b_res``) and the plan (``cull2``, ``sup``)."""
     if t_max is None:
         t_max = BIG
     r = o.shape[0]
     C_reg, K = ct.C_reg, ct.K
+    cull2, sup = cull_plan(C_reg, cull2, sup)
     dev = o.device
     r_pad = -(-r // ray_tile) * ray_tile
     n_chunks = r_pad // ray_tile
@@ -245,20 +362,32 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
     active0 = active
     t_min = float(t_min)
 
-    entry = _cull_T(o, d, active, ct.cmin, ct.cmax, t_min)   # (C_reg, R)
+    if sup > 1:
+        cull_min, cull_max = _super_boxes(ct.cmin, ct.cmax, sup)
+    else:
+        cull_min, cull_max = ct.cmin, ct.cmax
+    C_cull = cull_min.shape[0]
+    entry = _cull_T(o, d, active, cull_min, cull_max, t_min,
+                    with_exit=cull2)                     # (C_cull, R)
+    if cull2:
+        entry, exit_ = entry
     if sort_rays:
-        # two-level bin key (nearest touched cluster, last touched
-        # cluster); untouched and dead lanes sort strictly last
+        # two-level bin key (nearest touched box, last touched box);
+        # untouched and dead lanes sort strictly last
         touched = entry < BIG * 0.5
         kmin = torch.argmin(entry, dim=0)
         any_t = torch.any(touched, dim=0)
-        klast = C_reg - 1 - torch.argmax(touched.flip(0).to(torch.uint8),
-                                         dim=0)
-        key = torch.where(any_t, kmin * (C_reg + 1) + klast,
-                          C_reg * (C_reg + 2))
+        klast = C_cull - 1 - torch.argmax(touched.flip(0).to(torch.uint8),
+                                          dim=0)
+        key = torch.where(any_t, kmin * (C_cull + 1) + klast,
+                          C_cull * (C_cull + 2))
         order = torch.sort(key, stable=True).indices
         o, d, active = o[order], d[order], active[order]
+        # the cull of a ray depends on that ray alone: permuting its
+        # columns is the reference's re-cull of the sorted rays
         entry = entry[:, order]
+        if cull2:
+            exit_ = exit_[:, order]
         if keep_sorted:
             extras = tuple(e[order] for e in extras)
     else:
@@ -269,18 +398,32 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
     phi = ray_features(o, d_eff)
     a = vec.dot(d_eff, d_eff)
     a = torch.where(a == 0.0, 1.0, a)
-    # per-lane stop gate: the farthest touched-cluster entry, nudged so the
-    # lane's own last cluster is still processed; -BIG for lanes touching
-    # no regular cluster (and inactive lanes), which drive no march at all
-    gate = torch.amax(torch.where(entry >= BIG * 0.5, -BIG, entry), dim=0)
+    # per-lane stop gate: the farthest touched-box entry (under cull2 the
+    # farthest touched-supercluster exit), nudged so the lane's own last
+    # cluster is still processed; -BIG for lanes touching no regular
+    # cluster (and inactive lanes), which drive no march at all
+    far = exit_ if cull2 else entry
+    gate = torch.amax(torch.where(entry >= BIG * 0.5, -BIG, far), dim=0)
     gate = gate * (1.0 + 1e-5) + 1e-5
     if t_max < BIG * 0.5:
         gate = torch.clamp(gate, max=t_max)
     gate = torch.where(active, gate, -BIG)
 
     # per-chunk ascending cluster order by chunk entry, + one sentinel slot
-    chunk_entry = entry.reshape(C_reg, n_chunks, ray_tile).amin(dim=2).T
+    chunk_entry = entry.reshape(C_cull, n_chunks, ray_tile).amin(dim=2).T
+    if cull2:
+        ivl_entry = _chunk_interval_cull(o, d, active, ct.cmin, ct.cmax,
+                                         t_min, n_chunks, ray_tile)
+        sup_m = chunk_entry.repeat_interleave(sup, dim=1)[:, :C_reg]
+        chunk_entry = torch.maximum(ivl_entry, sup_m)
     ents_sorted, ids_sorted = torch.sort(chunk_entry, dim=1, stable=True)
+    if sup > 1 and not cull2:
+        # each supercluster slot expands to its members in id order
+        ids_sorted = torch.clamp(
+            ids_sorted[:, :, None] * sup
+            + torch.arange(sup, device=dev)[None, None, :],
+            max=C_reg - 1).reshape(n_chunks, -1)
+        ents_sorted = ents_sorted.repeat_interleave(sup, dim=1)
     ids = torch.cat([ids_sorted.to(torch.int32),
                      torch.zeros((n_chunks, 1), dtype=torch.int32,
                                  device=dev)], dim=1)
@@ -310,12 +453,14 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
             ct.is_sphere.view(C_tot, K), ct.ranges, K, t_min, float(t_max),
             ray_tile)
     return dict(o=o, d=d, active=active, active0=active0, rid=rid,
-                extras=extras, args=args, t_res=t_res, b_res=b_res, r=r)
+                extras=extras, args=args, t_res=t_res, b_res=b_res, r=r,
+                cull2=cull2, sup=sup)
 
 
 def cluster_march(ct: ClusterTables, o, d, t_min,
                   ray_tile: int = DEF_RAY_TILE, active=None, extras=None,
-                  t_max: float = None, sort_rays: bool = True):
+                  t_max: float = None, sort_rays: bool = True,
+                  cull2: bool = None, sup: int = None):
     """Single-pass culled closest-hit: (prim_idx, t, valid), each (R,).
 
     Indices address ``ct.scene`` (the reordered scene). ``active`` ((R,)
@@ -326,9 +471,12 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
     with ``pair_tests`` the executed (ray, prim-slot) tests. ``t_max``:
     hits at or beyond it are rejected and clusters entered beyond it are
     not marched. ``sort_rays`` False skips the binning sort (same result,
-    less locality)."""
+    less locality). ``cull2`` and ``sup``: the cull plan of
+    :func:`march_inputs` (exact either way; winners may differ only at
+    bit-equal t ties)."""
     q = march_inputs(ct, o, d, t_min, ray_tile=ray_tile, active=active,
-                     extras=extras, t_max=t_max, sort_rays=sort_rays)
+                     extras=extras, t_max=t_max, sort_rays=sort_rays,
+                     cull2=cull2, sup=sup)
     t_best, best, slots = march(*q["args"])
     pair_tests = float(slots.sum().item()) * ct.K * ray_tile
 
@@ -601,14 +749,21 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float,
                              window: int = DEF_WINDOW,
                              max_rounds: int = DEF_MAX_ROUNDS,
                              sort_rays: bool = True,
-                             strategy: str = "march"):
+                             strategy: str = "march", cull2: bool = None,
+                             sup: int = None,
+                             cull2_clusters: int = CULL2_CLUSTERS):
     """Closest-hit factory over prebuilt cluster tables. ``closest(o, d)``
     returns (idx, t, valid) in caller order; ``closest.query_shadow(o, d,
     active)`` is the NEE occlusion query. Indices refer to ``ct.scene``.
 
+    ``PT_CLUSTER_RAYTILE``, where set, overrides ``ray_tile``, as it does
+    in the reference's factory.
+
     ``strategy`` "march" (:func:`cluster_march`) also gives
     ``closest.query_sorted(o, d, active, extras)``, the sorted-wavefront
-    protocol, when ``sort_rays``. "rounds" (:func:`cluster_closest`, where
+    protocol, when ``sort_rays``; its cull plan (``cull2``, ``sup``,
+    ``cull2_clusters``: :func:`cull_plan` of ``ct.C_reg``) is
+    ``closest.cull_plan`` and its tables ``closest.tables``. "rounds" (:func:`cluster_closest`, where
     ``window`` and ``max_rounds`` apply) has no sorted protocol, so the
     integrator queries it in caller order; it needs K % 128 == 0."""
     if strategy not in STRATEGIES:
@@ -617,6 +772,7 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float,
     if strategy == "rounds" and ct.K % 128 != 0:
         raise ValueError(f"rounds strategy needs K % 128 == 0, got K = "
                          f"{ct.K}")
+    ray_tile = int(os.environ.get("PT_CLUSTER_RAYTILE") or ray_tile)
     closest_kw = dict(ray_tile=ray_tile, sort_rays=sort_rays)
 
     if strategy == "rounds":
@@ -630,6 +786,9 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float,
             # (the caller zeroes inactive segments, which resolve as misses)
             return cluster_closest(ct, o, d, K_SHADOW_T_MIN, **closest_kw)
     else:
+        cull2, sup = cull_plan(ct.C_reg, cull2, sup, cull2_clusters)
+        closest_kw.update(cull2=cull2, sup=sup)
+
         def closest(o, d):
             return cluster_march(ct, o, d, float(t_min), **closest_kw)
 
@@ -639,15 +798,18 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float,
             # Its origin is already offset off the surface (render/lights),
             # so t_min is the near-zero K_SHADOW_T_MIN, not the bounce t_min
             return cluster_march(ct, o, d, K_SHADOW_T_MIN, ray_tile=ray_tile,
-                                 active=active, t_max=1.0, sort_rays=False)
+                                 active=active, t_max=1.0, sort_rays=False,
+                                 cull2=cull2, sup=sup)
 
         if sort_rays:
             def query_sorted(o, d, active, extras):
                 return cluster_march(ct, o, d, float(t_min),
                                      ray_tile=ray_tile, active=active,
-                                     extras=extras)
+                                     extras=extras, cull2=cull2, sup=sup)
             closest.query_sorted = query_sorted
             closest.ray_tile = ray_tile
+        closest.cull_plan = (cull2, sup)
+        closest.tables = ct
 
     closest.handles_dead = True
     closest.query_shadow = query_shadow

@@ -50,8 +50,9 @@ from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.scene.scene import Scene
 
 # Cluster size (``PT_CLUSTER_K`` overrides). The reference picks 64 unless
-# its tables would overflow TPU VMEM; the port has no such limit.
-# Re-choosing K for the H100 is ROADMAP Queue 1, item 9.
+# its tables would overflow TPU VMEM, a limit the port does not have. On
+# an H100, K=128 was slower than 64 on the bunny and on its level-3
+# subdivision, and faster only at level 2 (PERF.md §6).
 CLUSTER_K = 64
 
 
@@ -72,18 +73,27 @@ def cluster_options():
     """(K, factory keywords) of the cluster route from the reference's
     environment knobs: ``PT_CLUSTER_K`` (default :data:`CLUSTER_K`),
     ``PT_CLUSTER_STRATEGY`` ("march" or "rounds"), ``PT_CLUSTER_RAY_TILE``
-    (rays per chunk), ``PT_CLUSTER_WINDOW``, ``PT_CLUSTER_MAX_ROUNDS`` (the
-    rounds strategy's) and ``PT_CLUSTER_SORT=0`` (no binning sort). Read
-    when a scene's route is built, so a :class:`Renderer` keeps the route
-    it built first."""
+    (rays per chunk; the factory also reads ``PT_CLUSTER_RAYTILE``, which
+    wins), ``PT_CLUSTER_WINDOW``, ``PT_CLUSTER_MAX_ROUNDS`` (the rounds
+    strategy's), ``PT_CLUSTER_SORT=0`` (no binning sort) and the march's
+    cull plan: ``PT_CLUSTER_CULL2`` ("1" or "0" forces the two-level cull
+    on or off; else it is on from ``PT_CLUSTER_CULL2_C`` regular clusters,
+    default 2048) and ``PT_CLUSTER_SUPER`` (clusters per supercluster).
+    Read when a scene's route is built, so a :class:`Renderer` keeps the
+    route it built first."""
     K = int(os.environ.get("PT_CLUSTER_K") or CLUSTER_K)
     kw = {}
-    for name in ("ray_tile", "window", "max_rounds"):
-        value = os.environ.get(f"PT_CLUSTER_{name.upper()}")
+    for name, var in (("ray_tile", "RAY_TILE"), ("window", "WINDOW"),
+                      ("max_rounds", "MAX_ROUNDS"), ("sup", "SUPER"),
+                      ("cull2_clusters", "CULL2_C")):
+        value = os.environ.get(f"PT_CLUSTER_{var}")
         if value:
             kw[name] = int(value)
     if os.environ.get("PT_CLUSTER_SORT", "1") == "0":
         kw["sort_rays"] = False
+    cull2 = os.environ.get("PT_CLUSTER_CULL2", "auto")
+    if cull2 not in ("auto", ""):
+        kw["cull2"] = cull2 == "1"
     strategy = os.environ.get("PT_CLUSTER_STRATEGY")
     if strategy:
         kw["strategy"] = strategy
@@ -242,14 +252,54 @@ class Renderer:
 
     def __call__(self, scene: Scene, cam: camera_mod.Camera,
                  seed: Optional[int] = None):
+        return self.render_passes(scene, cam, self.cfg.spp, seed=seed)
+
+    def render_passes(self, scene: Scene, cam: camera_mod.Camera,
+                      spp_per_pass: int, seed: Optional[int] = None,
+                      resume=None, on_pass=None):
+        """The gamma-2 image (H, W, 3) of ``cfg.spp`` samples rendered in
+        passes of ``spp_per_pass`` (with ``with_stats``, also the executed
+        (queries, shadow queries, march pair tests) of these passes).
+
+        Each pass is ``acc + render_sum(...)`` of its samples from zero,
+        the reference's addition order: a render in passes is
+        bit-identical to any other in passes of the same size, and one
+        pass is the one-pass render (0 + x == x). ``resume`` is a stopped
+        render's (framebuffer (P, 3), next sample index); ``on_pass(acc,
+        done)`` is called after each pass with the framebuffer and the
+        samples done."""
         cfg = self.cfg
         check_supported(cfg)
+        if spp_per_pass < 1:
+            raise ValueError(f"spp per pass must be positive, got "
+                             f"{spp_per_pass}")
         n_pixels = cfg.num_pixels
         rows, cols = padded_pixel_grid(cfg, min(cfg.ray_chunk, n_pixels),
                                        self.device)
+        query = self.prepare(scene)
+        if resume is None:
+            acc = torch.zeros((rows.shape[0], 3), dtype=torch.float32,
+                              device=self.device)
+            s = 0
+        else:
+            acc, s = resume
+            if tuple(acc.shape) != (rows.shape[0], 3):
+                raise ValueError(f"framebuffer {tuple(acc.shape)}, "
+                                 f"expected {(rows.shape[0], 3)}")
+            acc = torch.as_tensor(acc, dtype=torch.float32,
+                                  device=self.device)
         base_key = prng.PRNGKey(cfg.seed if seed is None else seed)
-        acc, stats = render_sum(scene, cam.to(self.device), base_key, rows,
-                                cols, cfg, cfg.spp, self.prepare(scene))
+        cam = cam.to(self.device)
+        stats = (0.0, 0.0, 0.0)
+        while s < cfg.spp:
+            n = min(spp_per_pass, cfg.spp - s)
+            part, part_stats = render_sum(scene, cam, base_key, rows, cols,
+                                          cfg, n, query, sample_offset=s)
+            acc = acc + part
+            stats = tuple(a + b for a, b in zip(stats, part_stats))
+            s += n
+            if on_pass is not None:
+                on_pass(acc, s)
         img = torch.sqrt(torch.clamp(acc[:n_pixels], min=0.0) / cfg.spp)
         img = img.reshape(cfg.height, cfg.width, 3)
         return (img, stats) if self.with_stats else img

@@ -6,6 +6,8 @@ import os
 import sys
 from typing import Tuple
 
+import numpy as np
+
 from pathtracer_tpu_torch.config import K_ASPECT_RATIO
 from pathtracer_tpu_torch.core.camera import Camera, make_camera
 from pathtracer_tpu_torch.io.obj import load_obj
@@ -27,12 +29,37 @@ def resolve_bunny_obj() -> str | None:
     return None
 
 
+def subdivide_faces(verts, faces, levels: int = 1):
+    """4:1 midpoint subdivision, ``levels`` times (numpy, host).
+
+    Splits every triangle into four at its edge midpoints: the surface is
+    unchanged (no smoothing), only the triangle count quadruples, so a
+    level-k bunny is the same geometry at 4^k times the primitive count,
+    the scaling workload of the culled closest hit
+    (``tools/bench_prim_scaling.py --bunny``). Emits unshared triangle
+    soup; midpoints are computed in the vertices' dtype (float32)."""
+    for _ in range(levels):
+        a = verts[faces[:, 0]]
+        b = verts[faces[:, 1]]
+        c = verts[faces[:, 2]]
+        ab, bc, ca = (a + b) / 2, (b + c) / 2, (c + a) / 2
+        tris = np.concatenate([
+            np.stack([a, ab, ca], axis=1),
+            np.stack([ab, b, bc], axis=1),
+            np.stack([ca, bc, c], axis=1),
+            np.stack([ab, bc, ca], axis=1),
+        ], axis=0)                                  # (4F, 3, 3)
+        verts = tris.reshape(-1, 3)
+        faces = np.arange(verts.shape[0], dtype=np.int64).reshape(-1, 3)
+    return verts, faces
+
+
 def bunny_world(obj_path: str | None = None, scale: float = 20.0,
                 material: str = "lambertian", subdivide: int = 0,
                 device="cuda") -> Tuple[Scene, Camera]:
-    if subdivide:
-        raise NotImplementedError(
-            "bunny subdivision is not ported yet (ROADMAP Queue 1, item 9)")
+    """The bunny scene; ``subdivide`` k splits every mesh triangle 4:1 k
+    times (after the scale, before the centring), giving 3,616 * 4^k
+    triangles plus the three spheres with the vendored asset."""
     if obj_path is None:
         obj_path = resolve_bunny_obj()
     if obj_path is not None and os.path.exists(obj_path):
@@ -43,6 +70,8 @@ def bunny_world(obj_path: str | None = None, scale: float = 20.0,
               file=sys.stderr)
         verts, faces = bunny_standin()
     verts = verts * scale
+    if subdivide:
+        verts, faces = subdivide_faces(verts, faces, subdivide)
     # center on origin, rest on y=0
     lo = verts.min(axis=0)
     hi = verts.max(axis=0)

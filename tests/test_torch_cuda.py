@@ -589,3 +589,52 @@ def test_gradients_match_cpu(gpu, name):
         np.testing.assert_allclose(g[f], c[f], rtol=1e-4, atol=1e-7,
                                    err_msg=f)
     assert np.abs(g["albedo"]).sum() > 0 and np.abs(g["v0"]).sum() > 0
+
+
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_march_kernel_matches_twin_under_cull2(gpu, sort_rays):
+    """The level-2 bunny (905 regular clusters, past every chunk's old
+    57 slots) with cull2 forced on (sup 2): the march's inputs under the
+    two-level plan, kernel against twin to the bit, on a 57,600-ray camera
+    wavefront and (unsorted, t_max 1) as a shadow query."""
+    from pathtracer_tpu_torch.scene.bunny import bunny_world
+    scene, cam = bunny_world(subdivide=2, device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    assert ct.C_reg == 905
+    o, d = _wavefront("camera", cam, 57600, gpu)
+    kw = {} if sort_rays else dict(t_max=1.0, sort_rays=False)
+    q = cluster_sweep.march_inputs(ct, o, d, T_MIN, cull2=True, **kw)
+    assert (q["cull2"], q["sup"]) == (True, 2)
+    assert q["args"][3].shape[1] == ct.C_reg + 1
+    t_k, b_k, s_k = _march_bit_equal(q["args"])
+    assert s_k.sum() > 0 and (b_k >= 0).sum() > 1000
+
+
+def test_checkpoint_resume_on_the_card(gpu, tmp_path):
+    """A render in passes of 2 spp stopped after its first pass and
+    resumed equals the uninterrupted pass render on the card, bit for
+    bit."""
+    from pathtracer_tpu_torch.utils import checkpoint
+    cfg = RenderConfig(width=64, height=36, spp=4, max_depth=3,
+                       ray_chunk=64 * 36, accel="cluster", scene="bunny",
+                       seed=5)
+    scene, cam = get_world("bunny", device=gpu)
+
+    def passes(path, progress=None):
+        return checkpoint.render_with_checkpoints(
+            scene, cam, cfg, path, spp_per_chunk=2, progress=progress,
+            device=gpu).cpu().numpy()
+
+    full = passes(None)
+
+    def stop(done, total):
+        if done >= 2:
+            raise KeyboardInterrupt
+    ck = str(tmp_path / "r.npz")
+    with pytest.raises(KeyboardInterrupt):
+        passes(ck, stop)
+    cluster_sweep.MARCH_LAUNCHES = 0
+    resumed = passes(ck)
+    assert cluster_sweep.MARCH_LAUNCHES > 0
+    np.testing.assert_array_equal(resumed, full)
+    assert np.isfinite(full).all() and full.mean() > 0.3

@@ -168,12 +168,16 @@ def test_render_stats_and_determinism():
 def test_cli_and_no_jax_import(tmp_path):
     """Port renders in a fresh interpreter import neither jax nor the JAX
     package (the test process itself has both loaded): the bunny, a
-    cornell-full preset (NEE, stratify, textures, the dense sweep), and the
+    cornell-full preset (NEE, stratify, textures, the dense sweep), the
     bunny on the rounds route with the Sobol sampler, Russian roulette and
-    black termination."""
+    black termination, the big-scene example, and a checkpointed render in
+    passes."""
     out = tmp_path / "t.png"
     out2 = tmp_path / "c.png"
     out3 = tmp_path / "r.png"
+    out4 = tmp_path / "big.png"
+    out5 = tmp_path / "k.png"
+    ck = tmp_path / "k.npz"
     code = (
         "import os, sys\n"
         "from pathtracer_tpu_torch.__main__ import main\n"
@@ -188,6 +192,14 @@ def test_cli_and_no_jax_import(tmp_path):
         f" '8', '--spp', '2', '--max-depth', '3', '--ray-chunk', '128',"
         f" '--sampler', 'sobol', '--rr', '--rr-depth', '1',"
         f" '--terminate-black', '--device', 'cpu', '-o', {str(out3)!r}])\n"
+        "os.environ.pop('PT_CLUSTER_STRATEGY'); os.environ.pop('PT_CLUSTER_K')\n"
+        "from pathtracer_tpu_torch.examples.big_scene import main as big\n"
+        f"rc = rc or big(['--device', 'cpu', '--level', '0', '--width', '32',"
+        f" '--spp', '1', '--out', {str(out4)!r}])\n"
+        f"rc = rc or main(['--scene', 'test', '--width', '16', '--height', '8',"
+        f" '--spp', '2', '--max-depth', '2', '--ray-chunk', '128',"
+        f" '--spp-per-pass', '1', '--checkpoint', {str(ck)!r},"
+        f" '--device', 'cpu', '-o', {str(out5)!r}])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pathtracer_tpu' or m.startswith('pathtracer_tpu.')]\n"
         "print('LOADED', bad)\n"
@@ -198,5 +210,7 @@ def test_cli_and_no_jax_import(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
     assert "16x16, 4 spp" in proc.stdout and "nee" in proc.stdout
-    for path in (out, out2, out3):
+    assert "level 0: 3619 primitives, 57 regular clusters" in proc.stdout
+    assert "  2/2 spp" in proc.stdout and ck.exists()
+    for path in (out, out2, out3, out4, out5):
         assert path.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

@@ -327,6 +327,31 @@ def test_factory_and_environment_knobs(monkeypatch):
         trenderer.make_query(ts, cfg)
 
 
+@pytest.mark.parametrize("env", [
+    {}, {"PT_CLUSTER_RAY_TILE": "256"}, {"PT_CLUSTER_RAYTILE": "256"},
+    {"PT_CLUSTER_RAY_TILE": "512", "PT_CLUSTER_RAYTILE": "256"}],
+    ids=["neither", "RAY_TILE", "RAYTILE", "both"])
+def test_ray_tile_spellings_match_reference(env, monkeypatch):
+    """Both spellings of the chunk-width knob: the renderer reads
+    ``PT_CLUSTER_RAY_TILE`` and the factory ``PT_CLUSTER_RAYTILE``, which
+    wins; the port's march chunks as the reference's
+    (``renderer._make_closest``) does."""
+    from pathtracer_tpu.render.renderer import _make_closest
+    for var in ("PT_CLUSTER_K", "PT_CLUSTER_STRATEGY", "PT_CLUSTER_RAY_TILE",
+                "PT_CLUSTER_RAYTILE", "PT_CLUSTER_SORT"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    js, _ = jworlds.get_world("test")
+    ts, _ = tworlds.get_world("test", device="cpu")
+    ref, _ = _make_closest(js, None, T_MIN, accel="cluster")
+    port = trenderer.make_query(ts, TConfig(accel="cluster")).closest
+    assert port.ray_tile == ref.ray_tile
+    assert port.ray_tile == int(env.get("PT_CLUSTER_RAYTILE")
+                                or env.get("PT_CLUSTER_RAY_TILE")
+                                or tsweep.DEF_RAY_TILE)
+
+
 def test_window_wrapper_dispatch(bunny):
     """CPU tensors take the plain twin (no kernel launch is counted); other
     devices raise instead of falling back."""

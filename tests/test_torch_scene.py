@@ -143,8 +143,6 @@ def test_off_slice_raises():
     with pytest.raises(NotImplementedError, match="item 12"):
         render_image(ts, tc, tconfig.RenderConfig(accel="bvh", **small),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbunny.bunny_world(subdivide=1, device="cpu")
 
 
 @pytest.mark.parametrize("accel", ["cluster", "pallas", "brute"])
