@@ -73,13 +73,44 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    table builds timed; (c) the bunny at 640x360, 8 spp, depth 4 through
    the CLI in passes of 2 with ``--checkpoint``, stopped after its second
    pass and run again: the resumed image must equal the uninterrupted
-   pass render bit for bit and phase 4's one-pass image within 1e-6.
+   pass render bit for bit and phase 4's one-pass image within 1e-6;
+8. the BVH route, multi-device rendering, the viewer and the oracle, each
+   step with the launch counters reset just before it and read just
+   after: (a) the LBVH of the bunny and of its level-2 subdivision built
+   on the card, equal array by array to the CPU build, both timed; (b)
+   the BVH query (plain tensor ops, no kernel) on the bunny's 57,600-ray
+   camera wavefront against the march (K1): the same winners but at near
+   ties, with its time, traversal steps and the aten ops it dispatches;
+   (c) the bunny at 160x90, 1 spp, depth 4 through the CLI on the "bvh"
+   route (no kernel launched), bit-equal to the brute route; (d) the
+   sharded renderer on meshes of the one card ([cuda:0] 1x1, [cuda:0] * 2
+   as 2x1 and 1x2) at the bench shape: the rays-only images bit-equal to
+   the single render with the plan's chunk (57,600 and 28,800 rays), the
+   spp split within 1e-6, march launches counted, and the march (K1)
+   bit-equal to its twin on the first camera and the first bounce
+   wavefront (28,800 rays) in which the 2x1 render marched; (e) a one-rank NCCL
+   process group through ``initialize_distributed`` and a sharded render
+   under it (its framebuffer through ``all_reduce``), bit-equal to (d)'s
+   1x1 render; (f) the
+   sharded cornell-diff train step (2x1 on the card, dense sweep) against
+   the unsharded step with the plan's chunk: loss and every gradient
+   entry within rtol 1e-5 (atol 1e-9); (g) a
+   ``ViewerSession`` on the test world's "bvh" route for 3 frames, a move
+   and a frame, then ``python -m pathtracer_tpu_torch --interactive`` on
+   it under a pseudo-terminal: "w" after two frames, ESC after two more;
+   it must exit 0 with its frames printed and restart its passes after the
+   move;
+   (h) the NumPy oracle against the port's card render of the test world
+   (64x36, 24 spp, depth 8) within the CPU parity tests' noise-scaled
+   bounds.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path (and, for the march and the dense
-sweep, ``diff_launches`` on the differentiable path; for the march,
-``big_launches`` on the level-2 big-scene render), error, times and
-bound; the last line is ``{"ok": true, "device": {...}}``.
+sweep, ``diff_launches`` on the differentiable path and
+``sharded_launches`` on phase 8's 2x1 sharded bunny render and sharded
+train step; for the march, ``big_launches`` on the level-2 big-scene
+render), error, times and bound; the last line is ``{"ok": true,
+"device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
 
@@ -473,6 +504,20 @@ def march_wavefronts(dev):
     ] + [("shadow", cluster_sweep.march_inputs(
         ct, p, seg, K_SHADOW_T_MIN, active=valid, t_max=1.0,
         sort_rays=False)["args"])]
+
+
+def op_counter():
+    """A context manager that counts the aten ops dispatched inside it
+    (``.n``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    return OpCount()
 
 
 def real_rows(ct, scene):
@@ -888,6 +933,349 @@ def large_scenes(dev, card, march_img, run_cli, bunny_argv, out):
     return big_launches
 
 
+def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out):
+    """Phase 8 (module docstring), every launch counter reset just before
+    each step and read just after; ``march_img`` is phase 4's one-pass
+    bunny image and ``run_cli`` phase 4's CLI runner. Returns (march
+    launches of the 2x1 sharded bunny, dense sweep launches of the
+    sharded train step)."""
+    import pty
+    import select
+    import socket
+
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch import oracle
+    from pathtracer_tpu_torch.accel.lbvh import build_lbvh
+    from pathtracer_tpu_torch.ops import cluster_sweep, intersect, traversal
+    from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+    from pathtracer_tpu_torch.parallel import (initialize_distributed,
+                                               make_mesh,
+                                               make_sharded_renderer)
+    from pathtracer_tpu_torch.parallel.sharded import _shard_plan
+    from pathtracer_tpu_torch.presets import get_preset
+    from pathtracer_tpu_torch.render import diff, integrator
+    from pathtracer_tpu_torch.render.renderer import (CLUSTER_K,
+                                                      make_renderer)
+    from pathtracer_tpu_torch.scene.bunny import bunny_world
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    from pathtracer_tpu_torch.viewer.interactive import ViewerSession
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    # 8a. the LBVH of the bunny and of the level-2 bunny, on the card and
+    # on the CPU
+    for level in (0, BIG_SCENE_LEVELS[0]):
+        scene = bunny_world(subdivide=level, device="cpu")[0] if level \
+            else get_world("bunny", device="cpu")[0]
+        cpu, cpu_s = timed(lambda: build_lbvh(scene))
+        scene_g = scene.to(dev)
+        build_lbvh(scene_g)                          # warm-up
+        card_bvh, card_s = timed(lambda: build_lbvh(scene_g))
+        for name, a, b in zip(cpu._fields, cpu, card_bvh):
+            if not torch.equal(a, b.cpu()):
+                fail(f"LBVH level {level}: {name} built on the card differs "
+                     f"from the CPU build")
+        print(f"LBVH bunny level {level} ({scene.num_prims} prims, "
+              f"{card_bvh.num_nodes} nodes): card build {card_s:.4f} s, CPU "
+              f"build {cpu_s:.4f} s, all seven arrays equal [{card}]")
+    del scene, scene_g, cpu, card_bvh
+
+    # 8b. the BVH query on the bunny's camera wavefront against K1
+    scene, cam = get_world("bunny", device=dev)
+    ct = build_cluster_tables(scene, K=CLUSTER_K)
+    o, d = camera_wavefront(dev, cam, RAYS, 0)
+    idx_m, t_m, v_m = cluster_sweep.cluster_march(ct, o, d, T_MIN)
+    b_m = torch.where(v_m, ct.perm[idx_m.long()], -1)
+    closest = traversal.make_bvh_closest_hit(scene, build_lbvh(scene),
+                                             T_MIN)
+    steps = []
+    aabb = intersect.ray_aabb_hit
+
+    def counting(*args):
+        steps[-1] += 1
+        return aabb(*args)
+    steps.append(0)
+    reset_counts()
+    with mock.patch.object(intersect, "ray_aabb_hit", counting):
+        (idx_b, t_b, v_b), query_s = timed(lambda: closest(o, d))
+    if read_counts() != (0, 0, 0):
+        fail(f"the BVH query launched {read_counts()} (march, sweep, "
+             f"window) kernels")
+    steps.append(0)
+    with op_counter() as ops, \
+            mock.patch.object(intersect, "ray_aabb_hit", counting):
+        closest(o, d)
+    if steps[1] != steps[0]:
+        fail(f"the BVH query took {steps[0]} then {steps[1]} steps")
+    b_b = torch.where(v_b, idx_b, -1)
+    err = compare_hits("BVH vs march (camera)", t_b.cpu().numpy(),
+                       b_b.cpu().numpy(), t_m.cpu().numpy(),
+                       b_m.cpu().numpy(), scene.prim_type.cpu().numpy())
+    bvh_ms = cuda_ms(lambda: closest(o, d), torch, reps=3)
+    march_ms = cuda_ms(lambda: cluster_sweep.cluster_march(ct, o, d, T_MIN),
+                       torch)
+    print(f"BVH query, bunny camera wavefront ({RAYS} rays, "
+          f"{int(v_b.sum())} hits, {steps[0]} traversal steps, winners "
+          f"equal to the march but at near ties, max |dt| {err:.3g}): "
+          f"{bvh_ms:.4f} ms ({bvh_ms / steps[0]:.4f} ms a step; first call "
+          f"{query_s:.4f} s); {ops.n} aten ops dispatched in the query, "
+          f"{ops.n / steps[0]:.2f} a step; the march's whole query "
+          f"{march_ms:.4f} ms [{card}]")
+    prim_type_ct = ct.scene.prim_type.cpu().numpy()   # the march's order
+    del ct, o, d, idx_m, t_m, v_m, b_m, idx_b, t_b, v_b, b_b
+
+    # 8c. a "bvh"-route bunny through the CLI against the brute route
+    # (the same intersection arithmetic: bit-equal)
+    small_argv = ["--scene", "bunny", "--width", "160", "--height", "90",
+                  "--spp", "1", "--max-depth", "4", "--ray-chunk", "14400"]
+    imgs = {}
+    for accel in ("bvh", "brute"):
+        img_np, seconds, cfg, stats, counts = run_cli(
+            small_argv + ["--accel", accel],
+            os.path.join(out, f"chip_smoke_bunny_{accel}.png"))
+        imgs[accel] = img_np
+        mean = check_image(f"bunny ({accel})", img_np, (90, 160, 3), 0.3,
+                           0.95)
+        print(f"render bunny 160x90 1 spp depth 4, accel {accel}: "
+              f"{seconds:.4f} s wall, {stats[0]:.0f} closest-hit queries, "
+              f"image mean {mean:.5f} [{card}]")
+        if counts != (0, 0, 0):
+            fail(f"the {accel} bunny launched {counts} (march, sweep, "
+                 f"window) kernels")
+    if not np.array_equal(imgs["bvh"], imgs["brute"]):
+        fail(f"the bvh bunny image is not bit-equal to the brute image: "
+             f"max |diff| {np.abs(imgs['bvh'] - imgs['brute']).max():.3g}")
+    print("bunny bvh vs brute image: bit-equal")
+
+    # 8d. the sharded renderer on meshes of the one card, at the bench
+    # shape; a rays-only mesh equals the single render with its plan's
+    # chunk to the bit
+    from pathtracer_tpu_torch import __main__ as cli
+    args = cli.build_parser().parse_args(bunny_argv + ["--device", DEVICE])
+    _, _, cfg_b = cli.scene_and_config(args, dev)
+    sharded_marches = 0
+    real_march = cluster_sweep.march
+    real_trace = integrator.trace
+
+    def check_sharded_marches(marched, chunk):
+        """K1 against its twin on the first camera and the first bounce
+        wavefront in which the 2x1 sharded render marched a chunk (chunk
+        rays each), bit-equal (phase 3a)."""
+        if len(marched) != 2:
+            fail(f"the 2x1 sharded render marched {sorted(marched)} of the "
+                 f"camera and bounce wavefronts")
+        for name, args in marched.items():
+            lanes = -(-chunk // args[11]) * args[11]   # whole ray tiles
+            if args[0].shape[0] != lanes:
+                fail(f"sharded 2x1 {name}: {args[0].shape[0]} lanes "
+                     f"marched, expected {lanes}")
+            kernel = real_march(*args)
+            torch.cuda.synchronize()
+            twin = cluster_sweep.march_reference(*args)
+            t_k, b_k, s_k = (x.cpu().numpy() for x in kernel)
+            t_r, b_r, s_r = (x.cpu().numpy() for x in twin)
+            compare_hits(f"sharded 2x1 march {name}", t_k, b_k, t_r, b_r,
+                         prim_type_ct)
+            if not (np.array_equal(b_k, b_r) and np.array_equal(t_k, t_r)
+                    and np.array_equal(s_k, s_r)):
+                fail(f"sharded 2x1 march {name}: kernel and twin are not "
+                     f"bit-equal (t, best or slots per chunk)")
+            print(f"march on the 2x1 sharded render's first {name} "
+                  f"wavefront that marches ({chunk} rays, "
+                  f"{int((b_k >= 0).sum())} cluster hits, {int(s_k.sum())} "
+                  f"slots): bit-equal to the twin")
+
+    for devices, spp_axis in (([dev], 1), ([dev, dev], 1), ([dev, dev], 2)):
+        mesh = make_mesh(devices, spp_axis_size=spp_axis)
+        shape = f"{mesh.shape['rays']}x{mesh.shape['spp']}"
+        chunk = _shard_plan(cfg_b, mesh)[4]
+        render = make_sharded_renderer(cfg_b, mesh)
+        render.prepare(scene)
+        marched, path = {}, []
+
+        def tracing(*args, **kw):
+            path.clear()                 # a chunk's path starts
+            return real_trace(*args, **kw)
+
+        def recording(*args):
+            # a path's closest-hit queries (NEE shadow queries run at
+            # another t_min): the camera query, then the bounces; keep the
+            # first camera and first bounce query in which a chunk marched
+            # (a lane that hits only the residual marches nothing)
+            out = real_march(*args)
+            if len(marched) < 2 and (not path or args[9] == path[0]):
+                depth = len(path)
+                path.append(args[9])
+                name = ("camera", "bounce")[depth] if depth < 2 else None
+                if name and name not in marched and bool(out[2].any()):
+                    marched[name] = args
+            return out
+        reset_counts()
+        with mock.patch.object(cluster_sweep, "march", recording), \
+                mock.patch.object(integrator, "trace", tracing):
+            img, wall = timed(lambda: render(scene, cam))
+        counts = read_counts()
+        if shape == "2x1":
+            check_sharded_marches(marched, chunk)
+        if counts[0] <= 0 or counts[1] or counts[2]:
+            fail(f"sharded bunny {shape}: launched {counts} (march, sweep, "
+                 f"window) kernels")
+        img = img.cpu().numpy()
+        if shape == "2x1":
+            sharded_marches = counts[0]
+        elif shape == "1x1":
+            one_slot = img
+        if chunk == RAYS:
+            single = march_img
+        else:
+            single = make_renderer(cfg_b.replace(ray_chunk=chunk), dev)(
+                scene, cam).cpu().numpy()
+        gap = float(np.abs(img - single).max())
+        same = np.array_equal(img, single)
+        print(f"sharded bunny {shape} on {len(devices)} slot(s) of the card"
+              f", chunk {chunk}: wall {wall:.4f} s, {counts[0]} march "
+              f"launches, max |sharded - single render| {gap:.3g} "
+              f"({'bit-equal' if same else 'not bit-equal'}) [{card}]")
+        if (spp_axis == 1 and not same) or gap > 1e-6:
+            fail(f"sharded bunny {shape} differs from the single render")
+
+    # 8e. a one-rank NCCL process group, and a sharded render under it
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"localhost:{port}", 1, 0, device=DEVICE)
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl":
+            fail(f"the process group runs {backend}, not NCCL")
+        mesh = make_mesh([dev])
+        reset_counts()
+        img, wall = timed(lambda: make_sharded_renderer(cfg_b, mesh)(scene,
+                                                                     cam))
+        counts = read_counts()
+    finally:
+        torch.distributed.destroy_process_group()
+    same = np.array_equal(img.cpu().numpy(), one_slot)
+    print(f"sharded bunny 1x1 under a one-rank NCCL group (all_reduce of "
+          f"the framebuffer): wall {wall:.4f} s, {counts[0]} march launches"
+          f", bit-equal to the 1x1 render without a group {same} [{card}]")
+    if not same or counts[0] <= 0:
+        fail("the sharded render under NCCL differs from the one without")
+
+    # 8f. the sharded cornell-diff train step (2x1 on the card) against
+    # the unsharded step with the plan's chunk
+    scene_d, cam_d, cfg_d = get_preset("cornell-diff", device=dev)
+    cfg_d = cfg_d.replace(accel="pallas")
+    mesh = make_mesh([dev, dev])
+    chunk = _shard_plan(cfg_d, mesh)[4]
+    target = torch.full((cfg_d.num_pixels, 3), 0.2, device=dev)
+    runs = []
+    for name, m, cfg in (("sharded 2x1", mesh, cfg_d),
+                         ("unsharded", None, cfg_d.replace(ray_chunk=chunk))):
+        params = diff.scene_params(scene_d, ("albedo", "emit"))
+        opt = torch.optim.SGD(list(params.values()), lr=0.0)
+        step = diff.make_train_step(cfg, opt, mesh=m)
+        reset_counts()
+        loss, wall = timed(lambda: step(params, scene_d, cam_d, target, 1))
+        counts = read_counts()
+        runs.append((float(loss), {f: p.grad.cpu().numpy()
+                                   for f, p in params.items()}, counts))
+        print(f"train step cornell-diff {name} (chunk {chunk}, accel "
+              f"pallas): loss {float(loss):.8g}, {wall:.4f} s, {counts[1]} "
+              f"sweep launches [{card}]")
+    (l_s, g_s, c_s), (l_u, g_u, c_u) = runs
+    # rtol 1e-5 per entry: the slots' sums add in another order; atol
+    # 1e-9 only for an entry that cancels to about zero
+    worst = max(float((np.abs(g_s[f] - g_u[f])
+                       / (1e-9 + 1e-5 * np.abs(g_u[f]))).max()) for f in g_s)
+    print(f"sharded vs unsharded step: loss rel diff "
+          f"{abs(l_s - l_u) / l_u:.3g}, worst gradient entry at {worst:.3g} "
+          f"of rtol 1e-5 (atol 1e-9)")
+    if c_s[1] <= 0 or c_s[0] or c_s[2]:
+        fail(f"the sharded step launched {c_s} (march, sweep, window)")
+    if abs(l_s - l_u) > 1e-5 * abs(l_u) or worst > 1.0:
+        fail("the sharded train step disagrees with the unsharded step")
+
+    # 8g. the viewer on the test world's "bvh" route: a session for 3
+    # frames and a key, then the CLI's --interactive under a
+    # pseudo-terminal (w, then ESC)
+    scene_t, cam_t = get_world("test", device=dev)
+    sess = ViewerSession(scene_t, cam_t, cfg_b.replace(
+        width=64, height=36, max_depth=3, accel="bvh"), device=dev)
+    frames = [sess.step() for _ in range(3)]
+    moved = sess.handle_key("w", 0.1)
+    frames.append(sess.step())
+    if not (moved and sess.passes == 1 and all(
+            np.isfinite(f).all() and f.shape == (36, 64, 3) for f in frames)):
+        fail("the viewer session did not render, accumulate and restart")
+    master, slave = pty.openpty()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    viewer = subprocess.Popen(
+        [sys.executable, "-m", "pathtracer_tpu_torch", "--scene", "test",
+         "--width", "64", "--height", "36", "--max-depth", "3", "--accel",
+         "bvh", "--interactive", "--device", DEVICE], stdin=slave,
+        stdout=slave, stderr=slave,
+        cwd=HERE, env=env, close_fds=True)
+    os.close(slave)
+    text = b""
+    sent = []
+    t0 = time.perf_counter()
+    try:
+        while viewer.poll() is None and time.perf_counter() - t0 < 180:
+            r, _, _ = select.select([master], [], [], 0.5)
+            if r:
+                try:
+                    text += os.read(master, 1 << 16)
+                except OSError:
+                    break
+            n_frames = text.count(b"FPS")
+            if n_frames >= 2 and not sent:
+                os.write(master, b"w")
+                sent.append(n_frames)
+            elif len(sent) == 1 and n_frames >= sent[0] + 2:
+                os.write(master, b"\x1b")
+                sent.append(n_frames)
+        try:
+            rc = viewer.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            rc = None
+    finally:
+        if viewer.poll() is None:
+            viewer.kill()
+            viewer.wait()
+        os.close(master)
+    n_frames = text.count(b"FPS")
+    print(f"viewer: ViewerSession 4 frames on the card (a move restarts "
+          f"its passes); --interactive under a pty: exit {rc}, {n_frames} "
+          f"frames, keys sent after frames {sent} [{card}]")
+    if rc != 0 or len(sent) != 2 or b"passes: 1 " not in text[
+            text.find(b"FPS", text.find(b"FPS") + 1):]:
+        fail(f"the interactive viewer did not quit cleanly on ESC after a "
+             f"move: {text[-2000:]!r}")
+
+    # 8h. the NumPy oracle against the port's card render of the test world
+    w, h, spp, depth = 64, 36, 24, 8
+    (mean, _), oracle_s = timed(lambda: oracle.render(scene_t, cam_t, w, h,
+                                                      spp, depth, seed=7))
+    stats = oracle.compare_to_torch(scene_t, cam_t, w, h, spp, depth, mean,
+                                    seed=7, scene_name="test", device=DEVICE)
+    print(f"oracle test world {w}x{h} {spp} spp depth {depth} "
+          f"({oracle_s:.2f} s on the host) vs the card render: {stats} "
+          f"[{card}]")
+    # the noise-scaled bounds of the CPU parity tests (tests/test_oracle.py)
+    if not (abs(stats["mean_signed_diff"]) < 0.004
+            and stats["mean_abs_cross"] <= 1.35 * stats["mean_abs_self"]
+            + 5e-3 and stats["p99_cross"] <= 1.5 * stats["p99_self"] + 0.02):
+        fail(f"the card render disagrees with the oracle: {stats}")
+    return sharded_marches, c_s[1]
+
+
 def write_png_out(path, img_np):
     from pathtracer_tpu_torch.io.png import write_png
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1300,6 +1688,13 @@ def main() -> int:
     big_launches = large_scenes(dev, card, march_img, run_cli, bunny_argv,
                                 out)
 
+    # 8. the BVH route, the sharded renderer and train step, the viewer
+    # and the oracle
+    t8 = time.perf_counter()
+    sharded_marches, sharded_sweeps = bvh_and_sharded(
+        dev, card, march_img, run_cli, bunny_argv, out)
+    print(f"phase 8 took {time.perf_counter() - t8:.1f} s")
+
     k2 = sweep["triangle camera"]
     k3 = window["round 1"]
     print(json.dumps({"kernels": [{
@@ -1307,7 +1702,7 @@ def main() -> int:
         "source": "pathtracer_tpu_torch/csrc/cluster_march.cu",
         "replaces": "pathtracer_tpu/ops/cluster_sweep.py:446",
         "launches": march_launches, "diff_launches": grad_marches,
-        "big_launches": big_launches,
+        "big_launches": big_launches, "sharded_launches": sharded_marches,
         "max_abs_err": march_err,
         "ms": march["camera"][0], "plain_ms": march["camera"][1],
         "bound_ms": march["camera"][2], "bound_by": march["camera"][3],
@@ -1316,7 +1711,7 @@ def main() -> int:
         "source": "pathtracer_tpu_torch/csrc/dense_sweep.cu",
         "replaces": "pathtracer_tpu/ops/pallas_sweep.py:41",
         "launches": triangle_launches, "diff_launches": fit_sweeps,
-        "max_abs_err": sweep_err,
+        "sharded_launches": sharded_sweeps, "max_abs_err": sweep_err,
         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2],
         "bound_by": k2[3], "library_ms": None}, {
         "name": "window_sweep", "route": "cuda",

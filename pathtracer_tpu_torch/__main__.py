@@ -20,6 +20,11 @@ reference's knobs from the environment (``render/renderer.cluster_options``):
         python -m pathtracer_tpu_torch --scene bunny --width 640 \\
         --height 360 --spp 8 --max-depth 4 --ray-chunk 57600 \\
         -o out/bunny_rounds.png
+
+``--accel bvh`` takes the LBVH route; ``--mesh R`` or ``--mesh RxS``
+renders sharded over the first R*S CUDA devices (R over the pixels, S over
+the samples; on ``--device cpu``, R*S slots of the CPU); ``--interactive``
+opens the terminal viewer (WASD/QE move, ESC or x quits).
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rays per wavefront chunk (default 16384; with "
                         "--preset, the preset's)")
     p.add_argument("--accel", default=None,
-                   choices=["auto", "cluster", "tensor", "pallas", "brute"],
+                   choices=["auto", "cluster", "tensor", "pallas", "bvh",
+                            "brute"],
                    help="closest-hit route (default auto: tensor below "
                         "1,024 prims, cluster above; with --preset, "
                         "overrides the preset's)")
@@ -78,6 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp-per-pass", type=int, default=8,
                    help="samples per pass: a render of more spp, or any "
                         "render with --checkpoint, runs in passes")
+    p.add_argument("--interactive", action="store_true",
+                   help="progressive terminal viewer with WASD/QE camera")
+    p.add_argument("--mesh", default=None,
+                   help="render sharded over a device mesh: 'R' (pixels "
+                        "only) or 'RxS' (pixels x samples), on the first "
+                        "R*S CUDA devices")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu runs the plain twins (tests only)")
     p.add_argument("-o", "--output", default="debug.png")
@@ -123,30 +135,73 @@ def scene_and_config(args, device):
     return scene, cam, cfg
 
 
+def parse_mesh(spec: str, device: str):
+    """The mesh of ``--mesh R`` or ``--mesh RxS``: the first R*S CUDA
+    devices, or on the CPU R*S slots of it; raises ValueError when fewer
+    CUDA devices exist (no fallback)."""
+    import torch
+
+    from pathtracer_tpu_torch.parallel import make_mesh
+
+    try:
+        parts = [int(x) for x in spec.lower().split("x")]
+    except ValueError:
+        parts = []
+    if len(parts) not in (1, 2) or min(parts) < 1:
+        raise ValueError(f"--mesh {spec!r}: expected R or RxS")
+    spp_n = parts[1] if len(parts) == 2 else 1
+    n = parts[0] * spp_n
+    if device == "cpu":
+        return make_mesh(["cpu"] * n, spp_axis_size=spp_n)
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"--mesh {spec} needs {n} CUDA devices, "
+                         f"{have} visible")
+    return make_mesh([torch.device("cuda", i) for i in range(n)],
+                     spp_axis_size=spp_n)
+
+
+def cli_device(args):
+    """The device ``--device`` names; raises without a CUDA device for
+    ``cuda``."""
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; the CLI renders on the GPU")
+    return torch.device(args.device)
+
+
 def render_cli(args):
     """Build the scene and config, render, return (image (H,W,3) CPU
     tensor, seconds, cfg, (closest-hit queries, shadow queries, march pair
     tests)). Shared by the CLI and chip_smoke.py.
 
-    The reference's route: with ``--checkpoint``, or more spp than
-    ``--spp-per-pass``, the render runs in passes
-    (``utils/checkpoint.render_with_checkpoints``) with a progress line
-    after each; else in one."""
+    The reference's route: with ``--mesh``, one sharded render
+    (``parallel/sharded``; the statistics of this process's slots); else
+    with ``--checkpoint``, or more spp than ``--spp-per-pass``, the render
+    runs in passes (``utils/checkpoint.render_with_checkpoints``) with a
+    progress line after each; else in one."""
     import torch
 
+    from pathtracer_tpu_torch.parallel import make_sharded_renderer
     from pathtracer_tpu_torch.render.renderer import make_renderer
     from pathtracer_tpu_torch.utils.checkpoint import render_with_checkpoints
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; the CLI renders on the GPU")
-    device = torch.device(args.device)
+    device = cli_device(args)
     scene, cam, cfg = scene_and_config(args, device)
-    render = make_renderer(cfg, device, with_stats=True)
+    if args.mesh:
+        mesh = parse_mesh(args.mesh, args.device)
+        print(f"mesh: {mesh.shape}")
+        render = make_sharded_renderer(cfg, mesh, with_stats=True)
+    else:
+        render = make_renderer(cfg, device, with_stats=True)
     render.prepare(scene)           # table build is set-up, not render
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     start = time.perf_counter()
-    if args.checkpoint or cfg.spp > args.spp_per_pass:
+    if args.mesh:
+        img, stats = render(scene, cam)
+    elif args.checkpoint or cfg.spp > args.spp_per_pass:
         def show(done, total):
             print(f"  {done}/{total} spp "
                   f"({time.perf_counter() - start:.1f}s)", flush=True)
@@ -165,6 +220,11 @@ def main(argv=None) -> int:
     from pathtracer_tpu_torch.io.png import write_png
 
     try:
+        if args.interactive:
+            from pathtracer_tpu_torch.viewer.interactive import run_viewer
+            device = cli_device(args)
+            scene, cam, cfg = scene_and_config(args, device)
+            return run_viewer(scene, cam, cfg, device=device)
         img, seconds, cfg, (n_queries, n_shadow, _) = render_cli(args)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)

@@ -1,9 +1,7 @@
 """Runtime configuration (counterpart of ``pathtracer_tpu/config.py``).
 
 The same frozen dataclass, constants and ``accel="auto"`` rule as the
-reference, so a config round-trips between the two packages. Only the
-slice this port covers runs; the renderer raises ``NotImplementedError`` for
-the rest (see ``render/renderer.py``).
+reference, so a config round-trips between the two packages.
 """
 from __future__ import annotations
 

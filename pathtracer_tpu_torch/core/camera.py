@@ -6,11 +6,23 @@ are not normalized.
 """
 from __future__ import annotations
 
+import enum
 from typing import NamedTuple
 
 import torch
 
+from pathtracer_tpu_torch.config import K_CAMERA_SPEED
 from pathtracer_tpu_torch.core import sampling, vec
+
+
+class Direction(enum.Enum):
+    """Navigation directions of the interactive viewer."""
+    FORWARD = 0
+    BACKWARD = 1
+    LEFT = 2
+    RIGHT = 3
+    UP = 4
+    DOWN = 5
 
 
 class Camera(NamedTuple):
@@ -73,3 +85,17 @@ def get_rays(cam: Camera, s, t, u_disk1, u_disk2, u_time):
                  - cam.position[None, :] - offset)
     time = sampling.uniform_in_range(cam.time0, cam.time1, u_time)
     return origin, direction, time
+
+
+def move_camera(cam: Camera, direction: Direction,
+                delta_time: float) -> Camera:
+    """WASD/QE navigation: the camera moved ``K_CAMERA_SPEED *
+    delta_time`` along ``direction``, its viewport with it."""
+    velocity = K_CAMERA_SPEED * delta_time
+    step = {Direction.FORWARD: -cam.front, Direction.BACKWARD: cam.front,
+            Direction.LEFT: -cam.right, Direction.RIGHT: cam.right,
+            Direction.UP: cam.up, Direction.DOWN: -cam.up}[direction]
+    pos = cam.position + step * velocity
+    lower_left = (pos - cam.horizontal / 2.0 - cam.vertical / 2.0
+                  - cam.focus_dist * cam.front)
+    return cam._replace(position=pos, lower_left=lower_left)

@@ -15,6 +15,28 @@ from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE, Scene
 BIG_T = 3.0e38
 
 
+def ray_aabb_hit(o, d, bmin, bmax, t_min, t_max):
+    """Slab test; o, d, bmin, bmax broadcastable (..., 3), t_min, t_max
+    (...,) or scalars. Returns bool (...,).
+
+    ``1 / d`` is infinite on an axis-aligned ray, and ``(bmin - o) * inf``
+    is NaN where bmin == o. The running bounds take an axis's time only
+    where a comparison with it holds, so a NaN falls through to the bound
+    (as the reference's selects do); ``torch.maximum`` and ``clamp`` would
+    propagate it instead."""
+    inv = 1.0 / d
+    t0 = (bmin - o) * inv
+    t1 = (bmax - o) * inv
+    swap = inv < 0.0
+    lo = torch.where(swap, t1, t0)
+    hi = torch.where(swap, t0, t1)
+    tmin_r, tmax_r = t_min, t_max
+    for a in range(3):
+        tmin_r = torch.where(lo[..., a] > tmin_r, lo[..., a], tmin_r)
+        tmax_r = torch.where(hi[..., a] < tmax_r, hi[..., a], tmax_r)
+    return ~(tmax_r < tmin_r)
+
+
 def intersect_sphere(o, d, center, radius, t_min, t_max):
     """Returns (hit, t); nearest root in range preferred, else the far
     root. ``radius`` is signed."""

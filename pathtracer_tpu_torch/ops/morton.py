@@ -32,3 +32,25 @@ def morton3d(center, world_min, world_max):
     yy = expand_bits(q[..., 1])
     zz = expand_bits(q[..., 2])
     return (xx << 2) + (yy << 1) + zz
+
+
+def clz32(x):
+    """Count leading zeros of 32-bit values held in int64 (0 -> 32), by a
+    binary search on shifts of 16, 8, 4, 2 and 1: torch has no clz, and a
+    floating-point log2 rounds near powers of two."""
+    x = x.to(torch.int64)
+    n = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        top_clear = x < (1 << (32 - s))
+        n = torch.where(top_clear, n + s, n)
+        x = torch.where(top_clear, x << s, x)
+    return torch.where(x == 0, 32, n)
+
+
+def clz64_pair(code_a, id_a, code_b, id_b):
+    """clz of (code << 32 | id)_a XOR (code << 32 | id)_b, the 64-bit
+    Morton key of the reference's LBVH, from (code, id) pairs. Codes are
+    below 2^30 and ids below 2^31, so int64 xor gives the uint32 bits."""
+    hi = code_a ^ code_b
+    lo = id_a.to(torch.int64) ^ id_b.to(torch.int64)
+    return torch.where(hi == 0, 32 + clz32(lo), clz32(hi))

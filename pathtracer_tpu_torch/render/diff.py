@@ -9,9 +9,11 @@ kernels as the forward render, on detached inputs.
 
 Trainable parameters are a dict of Scene tensor fields (default albedo and
 emission; add "v0" for vertex and center gradients), held as leaf tensors
-by a ``torch.optim`` optimizer. The sharded train step (the reference's
-``shard_map`` with a ``psum`` gradient all-reduce) is not ported yet
-(ROADMAP Queue 1, item 13).
+by a ``torch.optim`` optimizer. Over a mesh (``parallel/``) the train
+step splits pixels over the rays axis and samples over the spp axis, and
+its loss and gradients sum over both, as the reference's ``shard_map``
+step with its ``psum`` does; across ranks the parameter gradients are
+all-reduced before the optimizer steps.
 """
 from __future__ import annotations
 
@@ -19,9 +21,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.core import random as prng
+from pathtracer_tpu_torch.parallel.mesh import group_up
+from pathtracer_tpu_torch.parallel.sharded import _shard_plan
 from pathtracer_tpu_torch.render import renderer as renderer_mod
 from pathtracer_tpu_torch.scene.scene import Scene
 
@@ -97,12 +102,11 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
     -> loss``: the loss at ``params`` (mean squared error of the linear
     image against ``target``, (H*W or padded, 3), pixel order as the
     renderer's), its gradient, and one step of ``optimizer``, which holds
-    the tensors of ``params``. Runs on ``scene``'s device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded train step is not ported yet (ROADMAP Queue 1, "
-            "item 13)")
+    the tensors of ``params``. Runs on ``scene``'s device, or with a
+    ``mesh`` on its slots (:func:`_sharded_step`)."""
     spp = cfg.spp if spp is None else spp
+    if mesh is not None:
+        return _sharded_step(cfg, optimizer, mesh, spp)
     chunk = min(cfg.ray_chunk, cfg.num_pixels)
     cfg_local = cfg.replace(ray_chunk=chunk)
 
@@ -118,6 +122,56 @@ def make_train_step(cfg: RenderConfig, optimizer: torch.optim.Optimizer,
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    return step
+
+
+def _sharded_step(cfg: RenderConfig, optimizer, mesh, spp: int):
+    """The train step over ``mesh``: rays slot r takes the r-th contiguous
+    share of the padded pixels (the reference's plan and chunk), spp slot
+    s the samples from s * spp / S; loss = (sum of the slots' SSE) / (sum
+    of their weighted channel counts), its gradient summed over every
+    slot (the parameters move to each slot's device and back through
+    autograd) and, with a process group up, all-reduced across the ranks
+    before ``optimizer.step()``.
+    With an spp axis each slot's error is that of its own samples'
+    estimate, as in the reference."""
+    rays_size, _, spp_local, per_dev, chunk = _shard_plan(
+        cfg.replace(spp=spp), mesh)
+    n_padded = per_dev * rays_size
+    cfg_local = cfg.replace(ray_chunk=chunk)
+    slots = mesh.local_slots()
+
+    def step(params, scene, cam, target, seed):
+        rows, cols = renderer_mod.padded_pixel_grid(cfg, n_padded, "cpu")
+        weight = _pixel_weights(cfg.num_pixels, n_padded, "cpu")
+        target = _pad_target(target, n_padded)
+        key = prng.PRNGKey(seed)
+        home = next(iter(params.values())).device
+        optimizer.zero_grad()
+        sse = n = 0.0
+        for r, s, dev in slots:
+            sl = slice(r * per_dev, (r + 1) * per_dev)
+            sse_s, n_s = _loss_local(
+                {f: p.to(dev) for f, p in params.items()}, scene.to(dev),
+                cam.to(dev), key, rows[sl].to(dev), cols[sl].to(dev),
+                target[sl].to(dev), weight[sl].to(dev), cfg_local,
+                spp_local, sample_offset=s * spp_local)
+            sse = sse + sse_s.to(home)
+            n = n + n_s.to(home)
+        if group_up():
+            dist.all_reduce(n)
+        loss = sse / n
+        loss.backward()
+        loss = loss.detach()
+        if group_up():
+            for p in params.values():
+                if p.grad is None:   # every rank must join each reduce
+                    p.grad = torch.zeros_like(p)
+                dist.all_reduce(p.grad)
+            dist.all_reduce(loss)
+        optimizer.step()
+        return loss
 
     return step
 
@@ -146,7 +200,7 @@ def fit(scene: Scene, cam, target_img, cfg: RenderConfig, steps: int = 50,
     sample jitter each step (SGD on the expectation); False freezes one
     noise realization, a deterministic objective whose minimum is exact
     when the target was rendered at the same (seed, spp). Runs on
-    ``scene``'s device."""
+    ``scene``'s device, or sharded over ``mesh``."""
     params = scene_params(scene, param_fields)
     optimizer = torch.optim.Adam(list(params.values()), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8)

@@ -14,13 +14,13 @@ depth)`` keyed again by ray id (``core/random``).
 Closest-hit routes (``cfg.accel``, "auto" by scene size): "cluster" (the
 march kernel, or with ``PT_CLUSTER_STRATEGY=rounds`` the window kernel),
 "pallas" (the dense sweep kernel), "tensor" (dense float32 matrix products,
-the "auto" choice below K_AUTO_ACCEL_PRIMS prims) and "brute". Every route
-carries a shadow query for NEE. ``stratify`` jitters sample s inside
-stratum (s mod m^2) of an m x m sub-pixel grid, m the largest integer with
-m^2 dividing ``cfg.spp``; ``sampler="sobol"`` takes the pixel jitter from
-a per-pixel Owen-scrambled Sobol point instead (and overrides
-``stratify``). The BVH route raises ``NotImplementedError`` naming its
-ROADMAP item.
+the "auto" choice below K_AUTO_ACCEL_PRIMS prims), "bvh" (the LBVH and
+stackless traversal, a correctness cross-check in plain tensor ops) and
+"brute". Every route carries a shadow query for NEE. ``stratify`` jitters
+sample s inside stratum (s mod m^2) of an m x m sub-pixel grid, m the
+largest integer with m^2 dividing ``cfg.spp``; ``sampler="sobol"`` takes
+the pixel jitter from a per-pixel Owen-scrambled Sobol point instead (and
+overrides ``stratify``).
 
 Kernel-facing tables are always built from the detached scene, so no
 kernel input carries autograd history; the scene a query shades with
@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from pathtracer_tpu_torch import config as config_mod
+from pathtracer_tpu_torch.accel.lbvh import build_lbvh
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.core import camera as camera_mod
 from pathtracer_tpu_torch.core import random as prng
@@ -46,6 +47,8 @@ from pathtracer_tpu_torch.ops.cluster_sweep import make_cluster_closest_hit
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
 from pathtracer_tpu_torch.ops.pallas_sweep import make_pallas_closest_hit
 from pathtracer_tpu_torch.ops.tensor_sweep import make_tensor_closest_hit
+from pathtracer_tpu_torch.ops.traversal import (make_bvh_closest_hit,
+                                              pack_fat_nodes)
 from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.scene.scene import Scene
 
@@ -60,13 +63,6 @@ class Query(NamedTuple):
     """A scene prepared for one closest-hit route."""
     closest: Callable   # closest(o, d) -> (idx, t, valid), + query_shadow
     scene: Scene        # the scene its indices address (shade with it)
-
-
-def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for what is not ported yet."""
-    if cfg.accel == "bvh":
-        raise NotImplementedError(
-            "accel 'bvh' is not ported yet (ROADMAP Queue 1, item 12)")
 
 
 def cluster_options():
@@ -116,17 +112,24 @@ def make_query(scene: Scene, cfg: RenderConfig) -> Query:
     """The closest-hit route ``cfg.accel`` selects for ``scene``, built on
     the scene's device from its detached tensors; the query's scene is
     ``scene`` itself, or on the cluster route its rows in cluster order
-    (``ClusterTables.scene``), so gradients reach the caller's tensors."""
-    check_supported(cfg)
+    (``ClusterTables.scene``), so gradients reach the caller's tensors.
+    The "bvh" route builds the scene's LBVH here."""
     accel = config_mod.resolve_accel(cfg.accel, scene.num_prims)
     if accel == "cluster":
         K, kw = cluster_options()
         ct = build_cluster_tables(scene, K=K)
         return Query(make_cluster_closest_hit(ct, cfg.t_min, **kw), ct.scene)
-    factory = {"tensor": make_tensor_closest_hit,
-               "pallas": make_pallas_closest_hit,
-               "brute": integrator.make_brute_closest_hit}[accel]
     detached = Scene(*(x.detach() for x in scene))
+    if accel == "bvh":
+        bvh = build_lbvh(detached)
+        nodes = pack_fat_nodes(detached, bvh)
+
+        def factory(sc, t_min):
+            return make_bvh_closest_hit(sc, bvh, t_min, nodes=nodes)
+    else:
+        factory = {"tensor": make_tensor_closest_hit,
+                   "pallas": make_pallas_closest_hit,
+                   "brute": integrator.make_brute_closest_hit}[accel]
     return Query(_with_shadow(factory, detached, cfg.t_min), scene)
 
 
@@ -176,7 +179,6 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
     torch.backends.cudnn.allow_tf32 = False
     if query is None:
         query = make_query(scene, cfg)
-    check_supported(cfg)
     n_padded = rows.shape[0]
     chunk = min(cfg.ray_chunk, n_padded)
     n_chunks = n_padded // chunk
@@ -188,6 +190,10 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
     m_strat = _stratum_grid(cfg.spp) if cfg.stratify else 1
     inv_m = 1.0 / m_strat
     use_sobol = cfg.sampler == "sobol"
+    # each chunk's key: its first pixel's global index, in float32 as the
+    # reference computes it (a chunk of padding alone keys 0)
+    pix0 = (rows[::chunk] * cfg.width + cols[::chunk]).to(
+        torch.int32).tolist()
 
     acc = torch.zeros((n_padded, 3), dtype=torch.float32, device=dev)
     n_queries = n_shadow = n_pairs = 0.0
@@ -198,7 +204,7 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
         for c in range(n_chunks):
             sl = slice(c * chunk, (c + 1) * chunk)
             row, col = rows[sl], cols[sl]
-            ckey = prng.fold_in(skey, c * chunk)
+            ckey = prng.fold_in(skey, pix0[c])
             pkey, tkey, lkey1, lkey2 = prng.split(ckey, 4)
             if use_sobol:
                 # sample s of each lane's own pixel (float32 arithmetic,
@@ -227,6 +233,14 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
             n_shadow += nsh
             n_pairs += npairs
     return acc, (n_queries, n_shadow, n_pairs)
+
+
+def finish_image(acc, cfg: RenderConfig) -> torch.Tensor:
+    """The displayed (H, W, 3) image of a raster-order framebuffer ``acc``
+    (P >= H*W, 3) holding the sums of ``cfg.spp`` samples: the mean,
+    clamped at 0, through gamma 2."""
+    img = torch.sqrt(torch.clamp(acc[:cfg.num_pixels], min=0.0) / cfg.spp)
+    return img.reshape(cfg.height, cfg.width, 3)
 
 
 class Renderer:
@@ -269,7 +283,6 @@ class Renderer:
         done)`` is called after each pass with the framebuffer and the
         samples done."""
         cfg = self.cfg
-        check_supported(cfg)
         if spp_per_pass < 1:
             raise ValueError(f"spp per pass must be positive, got "
                              f"{spp_per_pass}")
@@ -300,8 +313,7 @@ class Renderer:
             s += n
             if on_pass is not None:
                 on_pass(acc, s)
-        img = torch.sqrt(torch.clamp(acc[:n_pixels], min=0.0) / cfg.spp)
-        img = img.reshape(cfg.height, cfg.width, 3)
+        img = finish_image(acc, cfg)
         return (img, stats) if self.with_stats else img
 
 

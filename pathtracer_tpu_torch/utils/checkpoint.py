@@ -113,7 +113,6 @@ def render_with_checkpoints(scene, cam, cfg: RenderConfig,
         renderer = renderer_mod.make_renderer(cfg, device)
     elif renderer.cfg != cfg:
         raise ValueError("the renderer was made for another config")
-    renderer_mod.check_supported(cfg)
     state = (load_render_state(path, cfg, scene.num_prims)
              if path is not None else None)
 

@@ -121,7 +121,8 @@ def test_pass_render_matches_reference(tmp_path):
 def test_pass_render_stats_and_renderer_checks():
     """With a renderer made ``with_stats`` the executed counts come back
     summed over the passes, equal to the one-pass render's; a renderer of
-    another config and a pass size below 1 raise."""
+    another config and a pass size below 1 raise; the "bvh" route renders
+    in passes too, equal to brute force."""
     scene, cam = _test_world()
     render = make_renderer(CFG, "cpu", with_stats=True)
     img, stats = _passes(CFG, None, 2, renderer=render)
@@ -131,8 +132,8 @@ def test_pass_render_stats_and_renderer_checks():
         _passes(CFG.replace(spp=2), None, 2, renderer=render)
     with pytest.raises(ValueError, match="positive"):
         _passes(CFG, None, 0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _passes(CFG.replace(accel="bvh"), None, 2)
+    assert torch.equal(_passes(CFG.replace(accel="bvh"), None, 2),
+                       _passes(CFG.replace(accel="brute"), None, 2))
 
 
 @pytest.mark.parametrize("backend", ["npz", "torch"])

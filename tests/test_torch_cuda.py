@@ -638,3 +638,87 @@ def test_checkpoint_resume_on_the_card(gpu, tmp_path):
     assert cluster_sweep.MARCH_LAUNCHES > 0
     np.testing.assert_array_equal(resumed, full)
     assert np.isfinite(full).all() and full.mean() > 0.3
+
+
+def test_lbvh_on_the_card_equals_cpu_build(gpu):
+    """The LBVH of the bunny and of its level-1 subdivision built on the
+    card: all seven arrays equal to the CPU build (integer and min/max
+    arithmetic only)."""
+    from pathtracer_tpu_torch.accel.lbvh import build_lbvh
+    from pathtracer_tpu_torch.scene.bunny import bunny_world
+    for scene in (get_world("bunny", device="cpu")[0],
+                  bunny_world(subdivide=1, device="cpu")[0]):
+        cpu = build_lbvh(scene)
+        card = build_lbvh(scene.to(gpu))
+        for name, a, b in zip(cpu._fields, cpu, card):
+            assert b.device.type == "cuda"
+            assert torch.equal(a, b.cpu()), name
+
+
+def _agree_up_to_near_ties(idx_a, t_a, v_a, idx_b, t_b, v_b):
+    """Valid flags equal; winners equal but where the two t are within
+    rtol 1e-5 (a near tie that the two numerical paths break apart); t to
+    rtol 1e-5, atol 2e-4 (the sphere root's cancellation)."""
+    v = v_a.cpu().numpy()
+    np.testing.assert_array_equal(v, v_b.cpu().numpy())
+    ia, ib = idx_a.cpu().numpy(), idx_b.cpu().numpy()
+    ta, tb = t_a.cpu().numpy(), t_b.cpu().numpy()
+    differ = v & (ia != ib)
+    assert differ.sum() <= 1e-3 * v.sum(), differ.sum()
+    np.testing.assert_allclose(ta[v], tb[v], rtol=1e-5, atol=2e-4)
+    return int(v.sum())
+
+
+def test_bvh_winners_equal_the_march(gpu):
+    """The "bvh" route's traversal on the bunny's camera wavefront (57,600
+    rays) against the march (K1), winners mapped to scene order."""
+    from pathtracer_tpu_torch.accel.lbvh import build_lbvh
+    from pathtracer_tpu_torch.ops.traversal import make_bvh_closest_hit
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, 57600, gpu)
+    idx_m, t_m, v_m = cluster_sweep.cluster_march(ct, o, d, T_MIN)
+    idx_m = torch.where(v_m, ct.perm[idx_m.long()], 0)
+    bvh = make_bvh_closest_hit(scene, build_lbvh(scene), T_MIN)
+    idx_b, t_b, v_b = bvh(o, d)
+    assert _agree_up_to_near_ties(idx_b, t_b, v_b, idx_m, t_m, v_m) > 20000
+
+
+@pytest.mark.parametrize("spp_axis", [1, 2])
+def test_sharded_render_on_one_card(gpu, spp_axis):
+    """A mesh of two slots of the one card (2x1, 1x2) against the single
+    render with the plan's chunk: to the bit on 2x1, within 1e-6 on 1x2
+    (here 1 sample a slot, so also to the bit). The march is held to its
+    twin on the first two queries of the sharded render in which a chunk
+    marched (the plan's chunk of rays each), since the single render runs
+    it too."""
+    from unittest import mock
+
+    from pathtracer_tpu_torch.parallel import make_mesh, make_sharded_renderer
+    from pathtracer_tpu_torch.parallel.sharded import _shard_plan
+    cfg = RenderConfig(width=64, height=36, spp=2, max_depth=3,
+                       ray_chunk=2304, accel="cluster", scene="bunny",
+                       seed=5)
+    scene, cam = get_world("bunny", device=gpu)
+    mesh = make_mesh([gpu, gpu], spp_axis_size=spp_axis)
+    chunk = _shard_plan(cfg, mesh)[4]
+    real_march = cluster_sweep.march
+    marched = []
+
+    def recording(*args):
+        out = real_march(*args)
+        if len(marched) < 2 and bool(out[2].any()):    # a chunk marched
+            marched.append(args)
+        return out
+    cluster_sweep.MARCH_LAUNCHES = 0
+    with mock.patch.object(cluster_sweep, "march", recording):
+        img = make_sharded_renderer(cfg, mesh)(scene, cam)
+    assert cluster_sweep.MARCH_LAUNCHES > 0
+    assert [args[0].shape[0] for args in marched] == [
+        -(-chunk // args[11]) * args[11] for args in marched]   # whole tiles
+    assert len(marched) == 2
+    for args in marched:
+        _march_bit_equal(args)
+    single = make_renderer(cfg.replace(ray_chunk=chunk), gpu)(scene, cam)
+    assert torch.equal(img, single)
+    assert img.mean() > 0.3

@@ -264,11 +264,22 @@ def test_query_with_autograd_history_raises(ref):
 
 
 def test_sharded_step_is_not_ported(ref):
-    ts, _ = _port(ref[False]["js"])
-    params = tdiff.scene_params(ts)
-    opt = torch.optim.SGD(list(params.values()), lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdiff.make_train_step(CFG, opt, mesh=object())
+    """The sharded train step is ported (``tests/test_torch_parallel.py``
+    holds it against the reference): on a mesh of one CPU slot it is the
+    unsharded step, loss and gradients to the bit."""
+    from pathtracer_tpu_torch.parallel import make_mesh
+    ts, tc = _port(ref[False]["js"])
+    target = torch.full((CFG.num_pixels, 3), 0.25)
+    runs = []
+    for mesh in (None, make_mesh(["cpu"])):
+        params = tdiff.scene_params(ts)
+        opt = torch.optim.SGD(list(params.values()), lr=0.1)
+        loss = tdiff.make_train_step(CFG, opt, mesh=mesh)(params, ts, tc,
+                                                         target, 3)
+        runs.append((loss, {f: p.grad for f, p in params.items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for f in runs[0][1]:
+        assert torch.equal(runs[0][1][f], runs[1][1][f]), f
 
 
 def test_train_step_matches_jax_sgd(ref):
