@@ -31,8 +31,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    reset just before it and read just after: the bunny at 640x360, 8 spp,
    depth 4 (cluster march); cornell-full at 256x256, 64 spp, depth 4 with
    NEE, stratified jitter and textures (dense sweep), in the CLI's passes
-   of 8 spp; the triangle world at the reference's default, 800x450, 100
-   spp, depth 50 (dense sweep), in 13 passes; the
+   of 8 spp; the triangle world at the reference's default size and
+   depth, 800x450, depth 50, at 40 spp (of the reference's 100, cut for
+   the script's time; dense sweep), in 5 passes; the
    bunny again on the rounds route (PT_CLUSTER_STRATEGY=rounds,
    PT_CLUSTER_K=128: window sweep, no march), whose image must agree with
    the march's, with its window launches counted by kind; then the
@@ -102,15 +103,41 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    move;
    (h) the NumPy oracle against the port's card render of the test world
    (64x36, 24 spp, depth 8) within the CPU parity tests' noise-scaled
-   bounds.
+   bounds;
+9. the entry points, each step with the launch counters reset just
+   before it and read just after: (a) ``python -m
+   pathtracer_tpu_torch.bench`` at its defaults (the bunny at 640x360, 8
+   spp, depth 4, 57,600-ray chunks, 3 timed renders) in its own processes,
+   whose measured child resets the counters just before its timed renders
+   and reports them in its line: exactly one JSON line, ``correct``, a
+   positive rate, executed queries within the nominal, ``march_mfu`` at
+   most 1, this card's name, the march launched; (b) the bench on the
+   triangle world (800x450, 2 spp, depth 50) and on cornell (256x256, 16
+   spp, depth 4, NEE), in phase 4's chunks (90,000 and 65,536 rays, which
+   divide the images), each through the dense sweep (``--accel pallas``)
+   and the tensor route (the ``auto`` choice below 1,024 prims), their
+   rates side by side; (c) ``bench_scaling``: the n = 1 line at the bench
+   shape, then ``--proxy`` on ``cuda:0`` x 8, whose per-shard executed
+   queries must sum to the unsharded render's; (d) the inverse-rendering
+   example at its defaults (48x48, 8 spp, depth 2, NEE, "brute", 60
+   Adam steps): the loss must fall tenfold and the albedo error fall; (e)
+   ``entry()``'s step bit-equal to ``render_image`` through the march,
+   then ``dryrun_multichip(2)`` on ``[cuda:0] * 2``. In (c) and (e) the
+   march and the dense sweep record the arguments of their first and
+   last calls that do work, at each wavefront size the step gives them
+   (the proxy's 7,200-ray chunks, the entry's 14,400, the dry run's
+   march and train step), and the kernel must be bit-equal to its twin
+   on each.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path (and, for the march and the dense
-sweep, ``diff_launches`` on the differentiable path and
+sweep, ``diff_launches`` on the differentiable path,
 ``sharded_launches`` on phase 8's 2x1 sharded bunny render and sharded
-train step; for the march, ``big_launches`` on the level-2 big-scene
-render), error, times and bound; the last line is ``{"ok": true,
-"device": {...}}``.
+train step and ``bench_launches`` on phase 9's bench runs (the march's
+at the bench's defaults, the dense sweep's on 9b's pallas runs, each over
+the timed renders); for the march, ``big_launches`` on the level-2
+big-scene render), error, times and bound; the last line is ``{"ok":
+true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
 
@@ -135,6 +162,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import importlib.util
 import inspect
 import json
 import os
@@ -151,7 +179,7 @@ RAYS = 57600           # bunny chunk
 TRI_RAYS = 90000       # triangle world chunk (800x450 / 4)
 CORNELL_RAYS = 65536   # cornell-full chunk (256x256)
 BUNNY_PRIMS = 3619     # assets/bunny.obj's 3,616 faces and three spheres
-TRIANGLE_SPP = 100     # the reference's default; cut spp first for time
+TRIANGLE_SPP = 40      # of the reference's 100, cut for the script's time
 BENCH_REPS = 20        # timed calls per wavefront or launch in --bench
 T_MIN = 1e-3
 ROUNDS_K = 128         # the rounds strategy needs K % 128 == 0
@@ -160,22 +188,30 @@ BIG_LEVEL = 3          # phase 7a's subdivided bunny: 3,617 clusters, cull2
 BIG_SCENE_LEVELS = (2, 3)   # phase 7b: the example's default, then level 3
 ROUNDS_ENV = {"PT_CLUSTER_STRATEGY": "rounds", "PT_CLUSTER_K": str(ROUNDS_K)}
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s
-# outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# float32 operations per (ray, primitive) pair: 23 per pair scalar (12
-# products, 11 sums) times the scalars the primitive needs (sphere 2,
-# triangle 4), its epilogue (sphere 14, triangle 13) and the merge compare
-OPS_SPHERE_PAIR = 2 * 23 + 14 + 1
-OPS_TRI_PAIR = 4 * 23 + 13 + 1
-# ... of which a pair needs only these where its result cannot depend on
-# the rest (the dense and window sweeps skip the rest there): a sphere its
-# two pair scalars and the discriminant test (the roots only where disc >=
-# 0), a triangle det, b1 * det, b2 * det and the barycentric tests (t * det
-# and the t tests only where those pass)
-OPS_SPHERE_BASE = 2 * 23 + 4
-OPS_TRI_BASE = 3 * 23 + 9
+
+def load_metrics():
+    """This checkout's ``pathtracer_tpu_torch/utils/metrics.py``, loaded by
+    its path: the peaks, the per-pair operation counts and the card stamp
+    come from there (one copy for this script and the port's benches),
+    while ``--bench DIR`` and ``--launches DIR`` import the rest of the
+    port from DIR. Exits non-zero where the port is not beside this
+    script."""
+    path = os.path.join(HERE, "pathtracer_tpu_torch", "utils", "metrics.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_metrics", path)
+    module = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    except FileNotFoundError:
+        print(f"chip_smoke: FAIL: the port is not next to chip_smoke.py (no "
+              f"{path})", file=sys.stderr, flush=True)
+        sys.exit(1)
+    return module
+
+
+metrics = load_metrics()
+PEAK_BYTES, PEAK_F32 = metrics.PEAK_BYTES, metrics.PEAK_F32
+OPS_SPHERE_PAIR, OPS_TRI_PAIR = metrics.OPS_SPHERE_PAIR, metrics.OPS_TRI_PAIR
+OPS_SPHERE_BASE, OPS_TRI_BASE = metrics.OPS_SPHERE_BASE, metrics.OPS_TRI_BASE
 
 
 def fail(msg: str):
@@ -184,13 +220,10 @@ def fail(msg: str):
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    try:
+        return metrics.card_line()
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def cuda_ms(fn, torch, reps: int = 5) -> float:
@@ -625,16 +658,16 @@ def ms_text(ms, slots=0) -> str:
 
 def reset_counts():
     """Set the launch counter of every kernel wrapper to 0."""
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
-    cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
-    pallas_sweep.SWEEP_LAUNCHES = 0
+    from pathtracer_tpu_torch import bench
+    bench.reset_launch_counts()
 
 
 def read_counts():
     """(march, dense sweep, window sweep) launches since the last reset."""
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
-    return (cluster_sweep.MARCH_LAUNCHES, pallas_sweep.SWEEP_LAUNCHES,
-            cluster_sweep.WINDOW_LAUNCHES)
+    from pathtracer_tpu_torch import bench
+    counts = bench.launch_counts()
+    return (counts["cluster_march"], counts["dense_sweep"],
+            counts["window_sweep"])
 
 
 def differentiable(dev, card, march_img):
@@ -1276,6 +1309,294 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out):
     return sharded_marches, c_s[1]
 
 
+def run_bench(argv):
+    """``python -m pathtracer_tpu_torch.bench`` of this checkout with
+    ``argv``, in its own processes (its watchdog and measured child): its
+    one JSON line, and the seconds the command took. Fails unless it exits
+    0 with exactly one line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.bench", *argv],
+        cwd=HERE, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=HERE))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"bench {' '.join(argv)}: exit {proc.returncode}, "
+             f"{len(lines)} JSON lines:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return json.loads(lines[0]), time.perf_counter() - t0
+
+
+def bench_text(rec) -> str:
+    """One bench line as printed here."""
+    c = rec["config"]
+    launches = ", ".join(f"{k} {v}" for k, v in rec["launches"].items()
+                         if v)
+    return (f"{rec['metric']} {c['width']}x{c['height']} {c['spp']} spp depth "
+            f"{c['depth']}, accel {rec['accel']}, chunk {c['ray_chunk']}: "
+            f"{rec['value']:.4f} Mrays/s nominal, "
+            f"{rec['executed_mrays_per_s']:.4f} executed, walls "
+            f"{', '.join(f'{w:.4f}' for w in rec['walls_s'])} s (mean "
+            f"{rec['wall_s']:.4f}), setup {rec['setup_s']:.4f} s, warm-up "
+            f"{rec['warmup_s']:.4f} s, peak memory "
+            f"{rec['peak_mem_mib']:.1f} MiB, {rec['executed_queries']} of "
+            f"{rec['nominal_queries']} queries, {rec['shadow_queries']} "
+            f"shadow, {rec['pair_tests']} pair tests, march "
+            f"{rec['march_tflops']} TFLOP/s (upper count, mfu "
+            f"{rec['march_mfu']}), launches over {c['iters']} renders: "
+            f"{launches or 'none'}; correct {rec['correct']} "
+            f"({rec['check']['close_share']:.5f} of channels within 1e-4, "
+            f"mean |diff| {rec['check']['mean_abs_diff']:.3g}) "
+            f"[{rec['device']['name']}, {rec['device']['power_limit']}, "
+            f"SM {rec['device']['clocks_sm']}, "
+            f"{rec['device']['temperature']} C]")
+
+
+def check_bench(rec, card, what):
+    """Phase 9's checks of one bench line."""
+    if not rec["correct"]:
+        fail(f"{what}: the bench's check failed: {rec['check']}")
+    if not (rec["value"] and rec["value"] > 0
+            and 0 < rec["executed_queries"] <= rec["nominal_queries"]):
+        fail(f"{what}: value {rec['value']}, {rec['executed_queries']} of "
+             f"{rec['nominal_queries']} queries")
+    if rec["march_mfu"] is not None and rec["march_mfu"] > 1.0:
+        fail(f"{what}: march_mfu {rec['march_mfu']} > 1")
+    if rec["device"]["name"] != card.split(",")[0].strip():
+        fail(f"{what}: the bench ran on {rec['device']} and not on {card}")
+
+
+@contextlib.contextmanager
+def recording_work(module, name, works, tail=8):
+    """Inside the block, the kernel wrapper ``module.name`` records the
+    arguments of calls whose result ``works``, by their number of rays:
+    the first such call of each size (a host sync each call only until
+    it is found) and the last (the last such of the ``tail`` calls of its
+    size that follow the first, found after the block, with no sync while
+    the block runs). Yields {rays: {"first": args, "last": args}}."""
+    real = getattr(module, name)
+    seen, recent = {}, {}
+
+    def recording(*args):
+        out = real(*args)
+        rays = args[0].shape[0]
+        if rays in seen:
+            recent[rays].append((args, out))
+        elif works(out):
+            seen[rays] = {"first": args}
+            recent[rays] = collections.deque(maxlen=tail)
+        return out
+    try:
+        with mock.patch.object(module, name, recording):
+            yield seen
+    finally:
+        for rays, calls in recent.items():
+            for args, out in reversed(calls):
+                if works(out):
+                    seen[rays]["last"] = args
+                    break
+
+
+def marched(out) -> bool:
+    """A march that swept at least one cluster slot."""
+    return bool(out[2].any())
+
+
+def swept_a_hit(out) -> bool:
+    """A dense sweep in which at least one ray hit."""
+    return bool((out[1] >= 0).any())
+
+
+def hold_recorded(what, seen, kernel, twin, chunk=None):
+    """``kernel`` (the wrapper, on the card) bit-equal to its plain
+    ``twin`` on each call :func:`recording_work` kept. With ``chunk``, a
+    call on the path's chunk must be among them: ``chunk`` rays, or for
+    the march ``chunk`` rounded up to whole ray tiles."""
+    import numpy as np
+    import torch
+
+    def lanes(args):
+        tile = args[11] if len(args) == 12 else 1   # the march's ray_tile
+        return -(-chunk // tile) * tile
+
+    if not seen or chunk is not None and not any(
+            n == lanes(calls["first"]) for n, calls in seen.items()):
+        fail(f"{what}: no call that did work at the path's chunk "
+             f"({chunk} rays) recorded; sizes {sorted(seen)}")
+    for n, calls in sorted(seen.items()):
+        for which, args in calls.items():
+            with torch.no_grad():
+                out_k = kernel(*args)
+                torch.cuda.synchronize()
+                out_r = twin(*args)
+            k = [x.cpu().numpy() for x in out_k]
+            r = [x.cpu().numpy() for x in out_r]
+            if not all(np.array_equal(a, b) for a, b in zip(k, r)):
+                fail(f"{what}: the {which} {n}-ray call that did work: "
+                     f"kernel and twin are not bit-equal (max |dt| "
+                     f"{float(np.abs(k[0] - r[0]).max()):.3g}, "
+                     f"{int((k[1] != r[1]).sum())} winners differ)")
+            slots = f", {int(k[2].sum())} slots" if len(k) == 3 else ""
+            print(f"{what}: the {which} {n}-ray call that did work "
+                  f"({int((k[1] >= 0).sum())} hits{slots}): kernel "
+                  f"bit-equal to the twin")
+
+
+def entry_points(dev, card, out):
+    """Phase 9 (module docstring). Returns (the bench's march launches over
+    its timed renders at its defaults, its dense sweep launches over the
+    pallas runs of 9b)."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch import bench_scaling
+    from pathtracer_tpu_torch.entry import ENTRY_CFG, dryrun_multichip, entry
+    from pathtracer_tpu_torch.examples import inverse_rendering
+    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    from pathtracer_tpu_torch.render.renderer import render_image
+
+    # 9a. the bench at its defaults; its child resets the launch counters
+    # just before its timed renders and reports them just after
+    rec, seconds = run_bench([])
+    check_bench(rec, card, "bench at its defaults")
+    bench_marches = rec["launches"]["cluster_march"]
+    iters = rec["config"]["iters"]
+    print(f"bench line: {json.dumps(rec)}")
+    print(f"bench {bench_text(rec)}; {bench_marches / iters:g} march "
+          f"launches a render; the command took {seconds:.1f} s")
+    if rec["metric"] != "bunny_forward_throughput" or bench_marches <= 0 \
+            or rec["accel"] != "cluster":
+        fail(f"the bench at its defaults ran {rec['metric']} on "
+             f"{rec['accel']} with {rec['launches']}")
+
+    # 9b. the small scenes on the dense sweep and the tensor route (the
+    # auto choice below K_AUTO_ACCEL_PRIMS), in phase 4's chunks, which
+    # divide their images (the bench's default 57,600 pads them, and the
+    # dense routes query the padding lanes too)
+    bench_sweeps = 0
+    for scene_argv in (["--scene", "triangle", "--width", "800", "--height",
+                        "450", "--spp", "2", "--depth", "50", "--ray-chunk",
+                        str(TRI_RAYS)],
+                       ["--scene", "cornell", "--width", "256", "--height",
+                        "256", "--spp", "16", "--depth", "4", "--ray-chunk",
+                        str(CORNELL_RAYS)]):
+        values = {}
+        for accel in ("pallas", "tensor"):
+            rec, seconds = run_bench(scene_argv + ["--accel", accel])
+            check_bench(rec, card, f"bench {scene_argv[1]} {accel}")
+            sweeps = rec["launches"]["dense_sweep"]
+            others = sum(rec["launches"].values()) - sweeps
+            if (sweeps <= 0) != (accel == "tensor") or others:
+                fail(f"bench {scene_argv[1]} {accel} launched "
+                     f"{rec['launches']}")
+            if accel == "pallas":
+                bench_sweeps += sweeps
+            values[accel] = rec["value"]
+            print(f"bench line: {json.dumps(rec)}")
+            print(f"bench {bench_text(rec)}; the command took "
+                  f"{seconds:.1f} s")
+        print(f"bench {scene_argv[1]}: pallas / tensor nominal Mrays/s "
+              f"{values['pallas'] / values['tensor']:.4f} [{card}]")
+
+    # 9c. bench_scaling: the n = 1 line at the bench shape, then the proxy
+    # on cuda:0 x 8 slots
+    parser = bench_scaling.build_parser()
+    reset_counts()
+    lines = bench_scaling.run_scaling(parser.parse_args([]))
+    counts = read_counts()
+    if lines[0]["devices"] != 1 or not lines[0]["value"] > 0 \
+            or counts[0] <= 0 or sum(ln["launches"]["cluster_march"]
+                                     for ln in lines) != counts[0]:
+        fail(f"bench_scaling gave {lines} with {counts} (march, sweep, "
+             f"window) launches")
+    print(f"bench_scaling n = 1: {lines[0]['value']:.4f} Mrays/s, walls "
+          f"{', '.join(f'{w:.4f}' for w in lines[0]['walls_s'])} s, "
+          f"{counts[0]} march launches [{card}]")
+    reset_counts()
+    with recording_work(cluster_sweep, "march", marched) as proxy_marches:
+        proxy = bench_scaling.run_proxy(parser.parse_args(
+            ["--proxy", "--out", os.path.join(out,
+                                              "scaling_proxy_torch.json")]))
+    counts = read_counts()
+    if sum(proxy["per_shard_executed_queries"]) != \
+            proxy["unsharded_executed_queries"] or not proxy["sums_match"] \
+            or counts[0] <= 0 \
+            or proxy["slots"] != ["cuda:0"] * 8 \
+            or not proxy["single_device_frame_ms"] > 0:
+        fail(f"the scaling proxy: {proxy} with {counts} launches")
+    print(f"bench_scaling proxy on cuda:0 x 8 ({proxy['config']['chunk']}-"
+          f"ray chunks, {proxy['config']['chunks_per_slot']} a slot): "
+          f"executed queries per shard {proxy['per_shard_executed_queries']}"
+          f" (contiguous {proxy['per_shard_executed_queries_contiguous']}), "
+          f"summing to the unsharded {proxy['unsharded_executed_queries']}; "
+          f"imbalance efficiency {proxy['imbalance_efficiency']:.4f} "
+          f"(contiguous {proxy['imbalance_efficiency_contiguous']:.4f}); "
+          f"{proxy['collective_bytes_per_frame']['total']} all-reduce bytes a "
+          f"frame, {proxy['collective_ms_projected']:.4f} ms at the assumed "
+          f"450 GB/s; frame {proxy['single_device_frame_ms']:.2f} ms at the "
+          f"bench's chunk, {proxy['plan_chunk_frame_ms']:.2f} ms at the "
+          f"plan's; shards "
+          f"{', '.join(f'{x:.2f}' for x in proxy['shard_ms'])} ms; "
+          f"projected mesh frame {proxy['projected_mesh_frame_ms']:.2f} ms,"
+          f" efficiency {proxy['projected_efficiency']:.4f}; "
+          f"{counts[0]} march launches [{card}]")
+    hold_recorded("proxy march", proxy_marches, cluster_sweep.march,
+                  cluster_sweep.march_reference, proxy["config"]["chunk"])
+
+    # 9d. the inverse-rendering example at its defaults ("brute": no
+    # kernel)
+    inv_dir = os.path.join(out, "inverse_rendering")
+    reset_counts()
+    t0 = time.perf_counter()
+    if inverse_rendering.main(["--out-dir", inv_dir]) != 0:
+        fail("the inverse-rendering example failed")
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    with open(os.path.join(inv_dir, "history.json")) as f:
+        summary = json.load(f)["summary"]
+    print(f"inverse-rendering example (48x48, 8 spp, depth 2, NEE, brute, "
+          f"60 Adam steps): loss {summary['loss_first']:.6g} -> "
+          f"{summary['loss_last']:.6g}, albedo MAE "
+          f"{summary['albedo_mae_initial']:.5f} -> "
+          f"{summary['albedo_mae_fitted']:.5f} in {seconds:.2f} s, "
+          f"{counts} (march, sweep, window) launches [{card}]")
+    if not summary["loss_last"] < 0.1 * summary["loss_first"] \
+            or not summary["albedo_mae_fitted"] < \
+            summary["albedo_mae_initial"]:
+        fail(f"the example's fit did not cut its loss tenfold and lower the "
+             f"albedo error: {summary}")
+
+    # 9e. entry(): its step against render_image, then dryrun_multichip(2)
+    fn, (scene, cam, seed) = entry()
+    reset_counts()
+    with recording_work(cluster_sweep, "march", marched) as entry_marches:
+        img = fn(scene, cam, seed)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    ref = render_image(scene, cam, ENTRY_CFG, seed=seed, device=dev)
+    equal = torch.equal(img, ref)
+    print(f"entry() step {tuple(img.shape)}: bit-equal to render_image "
+          f"{equal}, mean {float(img.mean()):.5f}, {counts[0]} march "
+          f"launches")
+    if not equal or counts[0] <= 0 or not bool(torch.isfinite(img).all()):
+        fail(f"entry(): equal {equal}, {counts} launches")
+    hold_recorded("entry() march", entry_marches, cluster_sweep.march,
+                  cluster_sweep.march_reference, ENTRY_CFG.ray_chunk)
+    reset_counts()
+    with recording_work(cluster_sweep, "march", marched) as dry_marches, \
+            recording_work(pallas_sweep, "sweep", swept_a_hit) as dry_sweeps:
+        loss = dryrun_multichip(2)
+    counts = read_counts()
+    print(f"dryrun_multichip(2) on [cuda:0] * 2: loss {loss:.6f}, {counts} "
+          f"(march, sweep, window) launches")
+    if not np.isfinite(loss) or counts[0] <= 0 or counts[1] <= 0:
+        fail(f"dryrun_multichip(2): loss {loss}, {counts} launches")
+    hold_recorded("dryrun_multichip(2) march", dry_marches,
+                  cluster_sweep.march, cluster_sweep.march_reference)
+    hold_recorded("dryrun_multichip(2) sweep", dry_sweeps,
+                  pallas_sweep.sweep, pallas_sweep.sweep_reference)
+    return bench_marches, bench_sweeps
+
+
 def write_png_out(path, img_np):
     from pathtracer_tpu_torch.io.png import write_png
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1695,6 +2016,12 @@ def main() -> int:
         dev, card, march_img, run_cli, bunny_argv, out)
     print(f"phase 8 took {time.perf_counter() - t8:.1f} s")
 
+    # 9. the entry points: the bench, the scaling bench and its proxy, the
+    # inverse-rendering example, the compile-check entry
+    t9 = time.perf_counter()
+    bench_marches, bench_sweeps = entry_points(dev, card, out)
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+
     k2 = sweep["triangle camera"]
     k3 = window["round 1"]
     print(json.dumps({"kernels": [{
@@ -1703,7 +2030,7 @@ def main() -> int:
         "replaces": "pathtracer_tpu/ops/cluster_sweep.py:446",
         "launches": march_launches, "diff_launches": grad_marches,
         "big_launches": big_launches, "sharded_launches": sharded_marches,
-        "max_abs_err": march_err,
+        "bench_launches": bench_marches, "max_abs_err": march_err,
         "ms": march["camera"][0], "plain_ms": march["camera"][1],
         "bound_ms": march["camera"][2], "bound_by": march["camera"][3],
         "library_ms": None}, {
@@ -1711,7 +2038,8 @@ def main() -> int:
         "source": "pathtracer_tpu_torch/csrc/dense_sweep.cu",
         "replaces": "pathtracer_tpu/ops/pallas_sweep.py:41",
         "launches": triangle_launches, "diff_launches": fit_sweeps,
-        "sharded_launches": sharded_sweeps, "max_abs_err": sweep_err,
+        "sharded_launches": sharded_sweeps, "bench_launches": bench_sweeps,
+        "max_abs_err": sweep_err,
         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[2],
         "bound_by": k2[3], "library_ms": None}, {
         "name": "window_sweep", "route": "cuda",

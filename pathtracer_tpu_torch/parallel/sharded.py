@@ -51,6 +51,14 @@ def _shard_plan(cfg: RenderConfig, mesh: Mesh):
     return rays_size, spp_size, spp_local, per_dev, chunk
 
 
+def frame_all_reduce_bytes(cfg: RenderConfig, mesh: Mesh) -> int:
+    """Bytes of the framebuffer that one sharded render of ``cfg`` over
+    ``mesh`` hands to ``dist.all_reduce`` with a process group up: (R *
+    per_dev, 3) float32."""
+    rays_size, _, _, per_dev, _ = _shard_plan(cfg, mesh)
+    return rays_size * per_dev * 3 * 4
+
+
 def _gather_rays(mesh: Mesh, shares: dict, per_dev: int):
     """(R * per_dev, ...) in rays-slot order from ``shares`` {r: this
     process's sum over its spp slots of rays slot r}: concatenated on the

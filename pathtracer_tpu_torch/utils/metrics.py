@@ -5,16 +5,73 @@
 - :func:`mrays_per_s`: the nominal throughput, pixels x spp x depth
   closest-hit queries per wall-second;
 - :func:`trace_context`: a ``torch.profiler`` scope that writes a Chrome
-  trace (the reference's is a ``jax.profiler`` trace).
+  trace (the reference's is a ``jax.profiler`` trace);
+- :func:`card_line` and :func:`card_stamp`: the card's name, power limit,
+  SM clock and temperature from ``nvidia-smi``, stamped beside every
+  number measured on it;
+- the H100's peak rates and the float32 operations of one (ray,
+  primitive) pair test, from which bounds and utilizations are computed
+  (``chip_smoke.py``, ``bench.py``).
+
+Nothing here imports torch at module level.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from typing import Dict, Iterator, Optional
 
 TRACE_FILE = "trace.json"
+
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit): HBM
+# bytes/s and float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# float32 operations per (ray, primitive) pair: 23 per pair scalar (12
+# products, 11 sums) times the scalars the primitive needs (sphere 2,
+# triangle 4), its epilogue (sphere 14, triangle 13) and the merge compare
+OPS_SPHERE_PAIR = 2 * 23 + 14 + 1
+OPS_TRI_PAIR = 4 * 23 + 13 + 1
+# ... of which a pair needs only these where its result cannot depend on
+# the rest (the dense and window sweeps skip the rest there): a sphere its
+# two pair scalars and the discriminant test (the roots only where disc >=
+# 0), a triangle det, b1 * det, b2 * det and the barycentric tests (t * det
+# and the t tests only where those pass)
+OPS_SPHERE_BASE = 2 * 23 + 4
+OPS_TRI_BASE = 3 * 23 + 9
+
+# the fields of card_stamp, as nvidia-smi names them
+STAMP_FIELDS = ("name", "power.limit", "clocks.sm", "temperature.gpu")
+
+
+def nvidia_smi(fields) -> list:
+    """The first card's values of ``fields`` (nvidia-smi ``--query-gpu``
+    names), as nvidia-smi prints them; raises if nvidia-smi fails."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return [v.strip() for v in out.stdout.strip().splitlines()[0].split(",")]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return ", ".join(nvidia_smi(("name", "power.limit")))
+
+
+def card_stamp() -> dict:
+    """The card that a measurement ran on: ``name``, ``power_limit``,
+    ``clocks_sm`` and ``temperature`` from nvidia-smi (its strings, units
+    included), and ``count``, the CUDA devices this process sees."""
+    import torch
+    values = nvidia_smi(STAMP_FIELDS)
+    keys = ("name", "power_limit", "clocks_sm", "temperature")
+    return dict(zip(keys, values), count=torch.cuda.device_count())
 
 
 class PhaseTimer:

@@ -722,3 +722,37 @@ def test_sharded_render_on_one_card(gpu, spp_axis):
     single = make_renderer(cfg.replace(ray_chunk=chunk), gpu)(scene, cam)
     assert torch.equal(img, single)
     assert img.mean() > 0.3
+
+
+def test_bench_on_the_card(gpu):
+    """The bench (``python -m pathtracer_tpu_torch.bench``) on the bunny at
+    a small size: one line, correct, rates measured, the march launched,
+    stamped with this card."""
+    import json
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.bench", "--width", "64",
+         "--height", "36", "--spp", "2", "--depth", "3", "--iters", "2",
+         "--ray-chunk", "2304"], cwd=repo, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=repo))
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    assert proc.returncode == 0 and len(lines) == 1, proc.stderr[-3000:]
+    rec = lines[0]
+    assert rec["correct"] and rec["accel"] == "cluster"
+    assert rec["value"] > 0 and len(rec["walls_s"]) == 2
+    assert 0 < rec["executed_queries"] <= rec["nominal_queries"]
+    assert rec["launches"]["cluster_march"] > 0 and rec["pair_tests"] > 0
+    assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+    assert rec["march_mfu"] is None or rec["march_mfu"] <= 1.0
+
+
+def test_entry_step_on_the_card(gpu):
+    from pathtracer_tpu_torch.entry import ENTRY_CFG, dryrun_multichip, entry
+    cfg = ENTRY_CFG.replace(width=64, height=36, ray_chunk=2304)
+    fn, (scene, cam, seed) = entry(gpu, cfg)
+    cluster_sweep.MARCH_LAUNCHES = 0
+    img = fn(scene, cam, seed)
+    assert cluster_sweep.MARCH_LAUNCHES > 0
+    assert torch.equal(img, make_renderer(cfg, gpu)(scene, cam, 0))
+    assert np.isfinite(dryrun_multichip(2, device="cuda"))
