@@ -25,8 +25,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    sweep of the rounds strategy (K=128 tables) on every launch of one
    rounds query of the 57,600-ray bunny camera wavefront (residual pass,
    rounds, fallback: kind, W, live chunks, time and bound each, and their
-   sums) and on a full-width fallback over every chunk. Every kernel must
-   agree with its twin to the bit;
+   sums) and on a full-width fallback over every chunk; (3d) the draws
+   kernel (``csrc/ray_uniforms.cu``) in both modes: "flat" at (2, 57,600)
+   and (57,600,), "by_ray" at m = 6, 3 and 1 on a real march's 57,600 ray
+   ids (the binning order of the bunny's camera wavefront) and on the same
+   order counted down from 2^29 - 1, each with its device time
+   (``torch.profiler``), its twin's time, the aten ops the twin
+   dispatches and the int32 bound.
+   Every kernel must agree with its twin to the bit. On every path of the
+   later phases the draws kernel must launch, counted from that path's own
+   run, and the draw sets it recorded there (the first and last of each
+   shape) must be bit-equal to their twin; a flat (2, chunk) set and a
+   by-ray set on the path's chunk must be among them (57,600, 65,536 and
+   90,000 rays in phase 4, 4,096 and 57,600 in 6, 28,800 in 8, 7,200 and
+   14,400 in 9: all but 65,536 end in a partial 256-thread block);
 4. main paths through the CLI's code path, each with every launch counter
    reset just before it and read just after: the bunny at 640x360, 8 spp,
    depth 4 (cluster march); cornell-full at 256x256, 64 spp, depth 4 with
@@ -127,7 +139,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    last calls that do work, at each wavefront size the step gives them
    (the proxy's 7,200-ray chunks, the entry's 14,400, the dry run's
    march and train step), and the kernel must be bit-equal to its twin
-   on each.
+   on each;
+10. the draws kernel on the paths, each render through the CLI's code
+   path with every launch counter reset just before it and read just
+   after: (a) cornell at 256x256, 16 spp, depth 4 with NEE and ``--rr``
+   through the dense sweep, whose m = 3 and m = 1 draws on 65,536 rays
+   must be among those held to the twin; (b) the bunny render's wall and,
+   under ``torch.profiler``, its CUDA kernel launches, once as built and
+   once with every draw patched to its plain twin (in this script only),
+   the two images bit-equal.
 
 The line before the last is a JSON object with each kernel's route,
 source, launches on its main path (and, for the march and the dense
@@ -136,8 +156,10 @@ sweep, ``diff_launches`` on the differentiable path,
 train step and ``bench_launches`` on phase 9's bench runs (the march's
 at the bench's defaults, the dense sweep's on 9b's pallas runs, each over
 the timed renders); for the march, ``big_launches`` on the level-2
-big-scene render), error, times and bound; the last line is ``{"ok":
-true, "device": {...}}``.
+big-scene render; for ``ray_uniforms``, which replaces no Pallas kernel,
+``path_launches`` on every path named above and the times of its
+largest main-path set, by_ray m = 6 on 57,600 ids), error, times and
+bound; the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
 
@@ -251,6 +273,25 @@ def bound(n_bytes: float, n_ops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bound_int(n_bytes: float, n_ops: float):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the int32 operations over the card's int32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / metrics.PEAK_INT32 * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def draw_work(mode: str, n: int, m: int):
+    """(bytes, int32 operations) that one draw set needs: n elements of a
+    flat set, or n rays x m columns of a by-ray set (ids read once,
+    uniforms written once): a threefry block, the xor of its words and
+    the conversion per uniform, plus the fold-in block per ray."""
+    per_out = metrics.OPS_THREEFRY + 1 + metrics.OPS_TO_UNIT
+    if mode == "flat":
+        return 4 * n, n * per_out
+    return 4 * n + 4 * n * m, n * (metrics.OPS_THREEFRY + m * per_out)
+
+
 def nbytes(*xs) -> int:
     """Bytes of the tensors among ``xs``."""
     return sum(x.numel() * x.element_size() for x in xs
@@ -259,8 +300,8 @@ def nbytes(*xs) -> int:
 
 def kernel_label(mangled: str) -> str:
     """A kernel's short name from its mangled one."""
-    m = re.search(r"(cluster_march|dense_sweep|window_sweep)_kernel",
-                  mangled)
+    m = re.search(r"(cluster_march|dense_sweep|window_sweep|flat_uniforms|"
+                  r"ray_uniforms)_kernel", mangled)
     return m.group(1) if m else mangled
 
 
@@ -670,11 +711,18 @@ def read_counts():
             counts["window_sweep"])
 
 
-def differentiable(dev, card, march_img):
+def read_draws() -> int:
+    """The draws kernel's launches since the last reset."""
+    from pathtracer_tpu_torch import bench
+    return bench.launch_counts()["ray_uniforms"]
+
+
+def differentiable(dev, card, march_img, path_draws):
     """Phase 6 (module docstring), each step with every launch counter
     reset just before it and read just after; ``march_img`` is phase 4's
     bunny render. Returns (dense sweep launches of the fit, march launches
-    of the bunny gradient)."""
+    of the bunny gradient); each step's draws launches go into
+    ``path_draws``."""
     import numpy as np
     import torch
     from pathtracer_tpu_torch.config import RenderConfig
@@ -696,12 +744,15 @@ def differentiable(dev, card, march_img):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    fitted, history = diff.fit(start, cam_d, target, cfg_d, steps=FIT_STEPS,
-                               lr=0.05, param_fields=("albedo",), seed=0,
-                               resample=False)
+    with recording_draws() as fit_seen:
+        fitted, history = diff.fit(start, cam_d, target, cfg_d,
+                                   steps=FIT_STEPS, lr=0.05,
+                                   param_fields=("albedo",), seed=0,
+                                   resample=False)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / FIT_STEPS
     fit_counts = read_counts()
+    path_draws["fit cornell-diff"] = read_draws()
     fit_peak = torch.cuda.max_memory_allocated()
     mae0 = float((start.albedo - scene_d.albedo).abs().mean())
     mae1 = float((fitted["albedo"] - scene_d.albedo).abs().mean())
@@ -718,6 +769,8 @@ def differentiable(dev, card, march_img):
         fail(f"the fit did not lower the albedo error: {mae0} -> {mae1}")
     if fit_counts[1] <= 0 or fit_counts[0] or fit_counts[2]:
         fail(f"the fit launched {fit_counts} (march, sweep, window) kernels")
+    hold_draws("fit cornell-diff", fit_seen, path_draws["fit cornell-diff"],
+               min(cfg_d.ray_chunk, cfg_d.num_pixels), (6, 3))
 
     # 6b. the bunny at the bench shape through the march: one forward and
     # backward with respect to the albedos
@@ -730,8 +783,10 @@ def differentiable(dev, card, march_img):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    img = diff.render_linear(diff.apply_params(scene_b, params), cam_b,
-                             prng.PRNGKey(0), rows, cols, cfg_b, cfg_b.spp)
+    with recording_draws() as grad_seen:
+        img = diff.render_linear(diff.apply_params(scene_b, params), cam_b,
+                                 prng.PRNGKey(0), rows, cols, cfg_b,
+                                 cfg_b.spp)
     loss = img.mean()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -739,6 +794,7 @@ def differentiable(dev, card, march_img):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     bunny_counts = read_counts()
+    path_draws["bunny gradient"] = read_draws()
     bunny_peak = torch.cuda.max_memory_allocated()
     grad = params["albedo"].grad.cpu().numpy()
     print(f"bunny gradient {cfg_b.width}x{cfg_b.height} {cfg_b.spp} spp depth "
@@ -751,6 +807,8 @@ def differentiable(dev, card, march_img):
     if bunny_counts[0] <= 0 or bunny_counts[1] or bunny_counts[2]:
         fail(f"the bunny gradient launched {bunny_counts} (march, sweep, "
              f"window) kernels")
+    hold_draws("bunny gradient", grad_seen, path_draws["bunny gradient"],
+               RAYS)
     # its forward is the forward render's, gamma aside
     lin = img.detach()[:cfg_b.num_pixels].clamp(min=0.0).sqrt()
     diff_img = np.abs(lin.reshape(march_img.shape).cpu().numpy() - march_img)
@@ -966,7 +1024,8 @@ def large_scenes(dev, card, march_img, run_cli, bunny_argv, out):
     return big_launches
 
 
-def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out):
+def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
+                    path_draws):
     """Phase 8 (module docstring), every launch counter reset just before
     each step and read just after; ``march_img`` is phase 4's one-pass
     bunny image and ``run_cli`` phase 4's CLI runner. Returns (march
@@ -1151,9 +1210,12 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out):
             return out
         reset_counts()
         with mock.patch.object(cluster_sweep, "march", recording), \
-                mock.patch.object(integrator, "trace", tracing):
+                mock.patch.object(integrator, "trace", tracing), \
+                recording_draws() as seen:
             img, wall = timed(lambda: render(scene, cam))
         counts = read_counts()
+        draws = path_draws[f"sharded bunny {shape}"] = read_draws()
+        hold_draws(f"sharded bunny {shape}", seen, draws, chunk)
         if shape == "2x1":
             check_sharded_marches(marched, chunk)
         if counts[0] <= 0 or counts[1] or counts[2]:
@@ -1442,10 +1504,77 @@ def hold_recorded(what, seen, kernel, twin, chunk=None):
                   f"bit-equal to the twin")
 
 
-def entry_points(dev, card, out):
+@contextlib.contextmanager
+def recording_draws():
+    """Inside the block, the draws wrapper (``ops/uniforms``) records the
+    arguments of its first and last call of each signature: ("flat",
+    shape) or ("by_ray", rays, m). Yields {signature: {"first": args,
+    "last": args}}."""
+    from pathtracer_tpu_torch.ops import uniforms
+    flat, by_ray = uniforms.uniform, uniforms.uniform_by_ray
+    seen = {}
+
+    def note(sig, args):
+        seen.setdefault(sig, {"first": args})["last"] = args
+
+    def flat_recording(key, shape, device):
+        note(("flat", tuple(shape)), (key, tuple(shape), device))
+        return flat(key, shape, device)
+
+    def by_ray_recording(key, rid, m):
+        note(("by_ray", rid.shape[0], m), (key, rid, m))
+        return by_ray(key, rid, m)
+    with mock.patch.object(uniforms, "uniform", flat_recording), \
+            mock.patch.object(uniforms, "uniform_by_ray", by_ray_recording):
+        yield seen
+
+
+def draw_text(sig) -> str:
+    return (f"flat {sig[1]}" if sig[0] == "flat"
+            else f"by_ray {sig[1]} x {sig[2]}")
+
+
+def hold_draws(what, seen, launches, chunk=None, ms=(6,)):
+    """The draws kernel bit-equal to its twin on each call
+    :func:`recording_draws` kept, after a path that launched it
+    ``launches`` times (which must be positive). With ``chunk``, the
+    camera's flat (2, chunk) set and a by-ray set on ``chunk`` rays for
+    each m in ``ms`` must be among them."""
+    import torch
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import uniforms
+    need = [] if chunk is None else (
+        [("flat", (2, chunk))] + [("by_ray", chunk, m) for m in ms])
+    missing = [draw_text(sig) for sig in need if sig not in seen]
+    if launches <= 0:
+        fail(f"{what}: the path launched no draws kernel")
+    if not seen or missing:
+        fail(f"{what}: no draws recorded at the path's chunk "
+             f"({', '.join(missing)}); recorded "
+             f"{', '.join(draw_text(sig) for sig in sorted(seen))}")
+    n = 0
+    for sig, calls in sorted(seen.items()):
+        kernel, twin = ((uniforms.uniform, prng.uniform) if sig[0] == "flat"
+                        else (uniforms.uniform_by_ray, prng.uniform_by_ray))
+        for which, args in calls.items():
+            if which == "last" and args is calls["first"]:
+                continue
+            got = kernel(*args)
+            ref = twin(*args)
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                fail(f"{what}: the {which} {draw_text(sig)} draw set: the "
+                     f"draws kernel and its twin are not bit-equal")
+            n += 1
+    print(f"{what}: {launches} draws-kernel launches; the kernel bit-equal "
+          f"to its twin on {n} recorded calls "
+          f"({', '.join(draw_text(sig) for sig in sorted(seen))})")
+
+
+def entry_points(dev, card, out, path_draws):
     """Phase 9 (module docstring). Returns (the bench's march launches over
     its timed renders at its defaults, its dense sweep launches over the
-    pallas runs of 9b)."""
+    pallas runs of 9b); each step's draws launches go into
+    ``path_draws``."""
     import numpy as np
     import torch
     from pathtracer_tpu_torch import bench_scaling
@@ -1463,8 +1592,9 @@ def entry_points(dev, card, out):
     print(f"bench line: {json.dumps(rec)}")
     print(f"bench {bench_text(rec)}; {bench_marches / iters:g} march "
           f"launches a render; the command took {seconds:.1f} s")
+    path_draws["bench"] = rec["launches"]["ray_uniforms"]
     if rec["metric"] != "bunny_forward_throughput" or bench_marches <= 0 \
-            or rec["accel"] != "cluster":
+            or rec["accel"] != "cluster" or path_draws["bench"] <= 0:
         fail(f"the bench at its defaults ran {rec['metric']} on "
              f"{rec['accel']} with {rec['launches']}")
 
@@ -1484,10 +1614,16 @@ def entry_points(dev, card, out):
             rec, seconds = run_bench(scene_argv + ["--accel", accel])
             check_bench(rec, card, f"bench {scene_argv[1]} {accel}")
             sweeps = rec["launches"]["dense_sweep"]
-            others = sum(rec["launches"].values()) - sweeps
-            if (sweeps <= 0) != (accel == "tensor") or others:
+            # the other closest-hit kernels; the draws kernel launches on
+            # every route
+            others = (rec["launches"]["cluster_march"]
+                      + rec["launches"]["window_sweep"])
+            if (sweeps <= 0) != (accel == "tensor") or others \
+                    or rec["launches"]["ray_uniforms"] <= 0:
                 fail(f"bench {scene_argv[1]} {accel} launched "
                      f"{rec['launches']}")
+            path_draws[f"bench {scene_argv[1]} {accel}"] = \
+                rec["launches"]["ray_uniforms"]
             if accel == "pallas":
                 bench_sweeps += sweeps
             values[accel] = rec["value"]
@@ -1503,20 +1639,24 @@ def entry_points(dev, card, out):
     reset_counts()
     lines = bench_scaling.run_scaling(parser.parse_args([]))
     counts = read_counts()
+    path_draws["bench_scaling n = 1"] = read_draws()
     if lines[0]["devices"] != 1 or not lines[0]["value"] > 0 \
             or counts[0] <= 0 or sum(ln["launches"]["cluster_march"]
-                                     for ln in lines) != counts[0]:
+                                     for ln in lines) != counts[0] \
+            or path_draws["bench_scaling n = 1"] <= 0:
         fail(f"bench_scaling gave {lines} with {counts} (march, sweep, "
              f"window) launches")
     print(f"bench_scaling n = 1: {lines[0]['value']:.4f} Mrays/s, walls "
           f"{', '.join(f'{w:.4f}' for w in lines[0]['walls_s'])} s, "
           f"{counts[0]} march launches [{card}]")
     reset_counts()
-    with recording_work(cluster_sweep, "march", marched) as proxy_marches:
+    with recording_work(cluster_sweep, "march", marched) as proxy_marches, \
+            recording_draws() as proxy_draws:
         proxy = bench_scaling.run_proxy(parser.parse_args(
             ["--proxy", "--out", os.path.join(out,
                                               "scaling_proxy_torch.json")]))
     counts = read_counts()
+    path_draws["bench_scaling proxy"] = read_draws()
     if sum(proxy["per_shard_executed_queries"]) != \
             proxy["unsharded_executed_queries"] or not proxy["sums_match"] \
             or counts[0] <= 0 \
@@ -1541,6 +1681,8 @@ def entry_points(dev, card, out):
           f"{counts[0]} march launches [{card}]")
     hold_recorded("proxy march", proxy_marches, cluster_sweep.march,
                   cluster_sweep.march_reference, proxy["config"]["chunk"])
+    hold_draws("proxy", proxy_draws, path_draws["bench_scaling proxy"],
+               proxy["config"]["chunk"])
 
     # 9d. the inverse-rendering example at its defaults ("brute": no
     # kernel)
@@ -1568,10 +1710,12 @@ def entry_points(dev, card, out):
     # 9e. entry(): its step against render_image, then dryrun_multichip(2)
     fn, (scene, cam, seed) = entry()
     reset_counts()
-    with recording_work(cluster_sweep, "march", marched) as entry_marches:
+    with recording_work(cluster_sweep, "march", marched) as entry_marches, \
+            recording_draws() as entry_draws:
         img = fn(scene, cam, seed)
         torch.cuda.synchronize()
     counts = read_counts()
+    path_draws["entry()"] = read_draws()
     ref = render_image(scene, cam, ENTRY_CFG, seed=seed, device=dev)
     equal = torch.equal(img, ref)
     print(f"entry() step {tuple(img.shape)}: bit-equal to render_image "
@@ -1581,11 +1725,15 @@ def entry_points(dev, card, out):
         fail(f"entry(): equal {equal}, {counts} launches")
     hold_recorded("entry() march", entry_marches, cluster_sweep.march,
                   cluster_sweep.march_reference, ENTRY_CFG.ray_chunk)
+    hold_draws("entry()", entry_draws, path_draws["entry()"],
+               ENTRY_CFG.ray_chunk)
     reset_counts()
     with recording_work(cluster_sweep, "march", marched) as dry_marches, \
-            recording_work(pallas_sweep, "sweep", swept_a_hit) as dry_sweeps:
+            recording_work(pallas_sweep, "sweep", swept_a_hit) as dry_sweeps, \
+            recording_draws() as dry_draws:
         loss = dryrun_multichip(2)
     counts = read_counts()
+    path_draws["dryrun_multichip(2)"] = read_draws()
     print(f"dryrun_multichip(2) on [cuda:0] * 2: loss {loss:.6f}, {counts} "
           f"(march, sweep, window) launches")
     if not np.isfinite(loss) or counts[0] <= 0 or counts[1] <= 0:
@@ -1594,7 +1742,139 @@ def entry_points(dev, card, out):
                   cluster_sweep.march, cluster_sweep.march_reference)
     hold_recorded("dryrun_multichip(2) sweep", dry_sweeps,
                   pallas_sweep.sweep, pallas_sweep.sweep_reference)
+    hold_draws("dryrun_multichip(2)", dry_draws,
+               path_draws["dryrun_multichip(2)"])
     return bench_marches, bench_sweeps
+
+
+def draws_kernel(dev, card, ct, o_cam, d_cam):
+    """Phase 3d: the draws kernel against its twin on the card, bit for
+    bit, in both modes at the main path's shapes, each timed beside its
+    twin and its bound, with the aten ops the twin dispatches. Returns the
+    kernels-line numbers of the main path's largest set (by_ray, m = 6,
+    on a march's ids) and the largest |kernel - twin|."""
+    import torch
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import cluster_sweep, uniforms
+    # a real march's lane order: the binning sort of the camera wavefront;
+    # then the same order counted down from 2^29 - 1, the largest id
+    rid_march = cluster_sweep.march_inputs(ct, o_cam, d_cam, T_MIN)[
+        "rid"].to(torch.int32)
+    rid_top = (1 << 29) - 1 - rid_march
+    # a bounce key as the renderer makes one (sample 0, chunk 0, bounce 1)
+    key = prng.fold_in(prng.split(prng.fold_in(prng.fold_in(
+        prng.PRNGKey(0), 0), 0), 4)[1], 1)
+    cases = [("flat", None, shape) for shape in ((2, RAYS), (RAYS,))]
+    cases += [("by_ray", ids, m) for m in (6, 3, 1)
+              for ids in ("march", "top")]
+    err = 0.0
+    main = None
+    for mode, ids, arg in cases:
+        if mode == "flat":
+            n, m = RAYS * (2 if len(arg) == 2 else 1), 1
+            what = f"flat {arg}"
+
+            def kernel():
+                return uniforms.uniform(key, arg, dev)
+
+            def twin():
+                return prng.uniform(key, arg, dev)
+        else:
+            rid = rid_march if ids == "march" else rid_top
+            n, m = rid.shape[0], arg
+            what = f"by_ray m={m} on {n} ids ({ids})"
+
+            def kernel():
+                return uniforms.uniform_by_ray(key, rid, m)
+
+            def twin():
+                return prng.uniform_by_ray(key, rid, m)
+        got = kernel()
+        ref = twin()
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            fail(f"ray_uniforms {what}: kernel and twin are not bit-equal")
+        err = max(err, float((got - ref).abs().max()))
+        with op_counter() as ops:
+            twin()
+        n_bytes, n_ops = draw_work(mode, n, m)
+        b_ms, b_by = bound_int(n_bytes, n_ops)
+        ms = cuda_ms(kernel, torch)
+        dev_ms = device_ms(kernel, torch, 20, "uniforms_kernel")
+        plain_ms = cuda_ms(twin, torch)
+        print(f"ray_uniforms {what}, bit-equal to the twin: kernel "
+              f"{ms:.4f} ms, {ms_text(dev_ms)}; plain twin {plain_ms:.4f} ms "
+              f"({ops.n} aten ops dispatched), bound {b_ms * 1e3:.4f} us "
+              f"({b_by}, "
+              f"{n_bytes / 1e6:.4f} MB, {n_ops / 1e6:.3f} M int32 ops) "
+              f"[{card}]")
+        if (mode, ids, arg) == ("by_ray", "march", 6):
+            main = (ms, plain_ms, b_ms, b_by)
+    return main, err
+
+
+def draws_on_paths(run_cli, cli_draws, bunny_argv, out, card, cli, torch):
+    """Phase 10 (module docstring), every launch counter reset just before
+    each render and read just after; ``run_cli`` is phase 4's CLI runner,
+    which holds each render's draws to their twin and keeps its launches
+    and draw signatures in ``cli_draws``."""
+    import numpy as np
+    from pathtracer_tpu_torch.ops import uniforms
+
+    # 10a. cornell with NEE and Russian roulette through the dense sweep:
+    # the m = 3 and m = 1 draws at the path's chunk
+    cornell_argv = ["--scene", "cornell", "--width", "256", "--height", "256",
+                    "--spp", "16", "--max-depth", "4", "--accel", "pallas",
+                    "--ray-chunk", str(CORNELL_RAYS), "--rr"]
+    img, seconds, cfg, stats, counts = run_cli(
+        cornell_argv, os.path.join(out, "chip_smoke_cornell_rr.png"))
+    draws, sigs = cli_draws["cornell_rr"]
+    mean = check_image("cornell (NEE, Russian roulette)", img, (256, 256, 3),
+                       0.05, 0.9)
+    print(f"render cornell 256x256 16 spp depth 4, nee, rr, accel pallas, "
+          f"chunk {CORNELL_RAYS}: {seconds:.4f} s wall, {counts[1]} sweep "
+          f"launches, {draws} draws-kernel launches, image mean {mean:.5f} "
+          f"[{card}]")
+    if counts[1] <= 0 or not {("by_ray", CORNELL_RAYS, 3),
+                              ("by_ray", CORNELL_RAYS, 1)} <= set(sigs):
+        fail(f"cornell with NEE and Russian roulette: {counts} (march, "
+             f"sweep, window) launches, draws {sigs}")
+
+    # 10b. the bunny render's kernel launches and wall with the draws
+    # kernel (as built) and with every draw patched to its plain twin
+    # (here only: measurement, not an option of the program)
+    @contextlib.contextmanager
+    def twin_draws():
+        from pathtracer_tpu_torch.core import random as prng
+        with mock.patch.object(uniforms, "uniform", prng.uniform), \
+                mock.patch.object(uniforms, "uniform_by_ray",
+                                  prng.uniform_by_ray):
+            yield
+
+    images = []
+    for label, ctx, name in (
+            ("draws through the kernel", contextlib.nullcontext,
+             "bunny_draws_kernel"),
+            ("draws through the twin", twin_draws, "bunny_draws_twin")):
+        hold = ctx is contextlib.nullcontext
+        with ctx():
+            img, seconds, _, _, _ = run_cli(
+                bunny_argv, os.path.join(out, f"chip_smoke_{name}.png"),
+                hold=hold)
+            draws = cli_draws[name][0]
+            print(f"bunny, {label}: {seconds:.4f} s wall, {draws} "
+                  f"draws-kernel launches [{card}]")
+            if (draws > 0) != hold:
+                fail(f"bunny, {label}: {draws} draws-kernel launches")
+            profile_render(cli, f"bunny, {label}", bunny_argv,
+                           "uniforms_kernel", card, torch)
+        images.append(img)
+    # the twin's draws are the draws before the kernel: the image must not
+    # change by a bit
+    if not np.array_equal(images[0], images[1]):
+        fail("the bunny through the draws kernel differs from the bunny "
+             "through its twin")
+    print("bunny through the draws kernel vs through its twin: bit-equal")
 
 
 def write_png_out(path, img_np):
@@ -1714,7 +1994,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build, every source at once
-    kernels = ("cluster_march", "dense_sweep", "window_sweep")
+    kernels = ("cluster_march", "dense_sweep", "window_sweep",
+               "ray_uniforms")
     t0 = time.perf_counter()
     _cuda_build.build_all(kernels)
     for name in kernels:
@@ -1862,14 +2143,32 @@ def main() -> int:
     print(f"window sweep, one rounds query ({len(launches) - 1} launches): "
           f"kernel {query_ms:.4f} ms, bound {query_bound:.4f} ms [{card}]")
 
-    # 4. the main paths through the CLI's code path
-    def run_cli(argv, out_png, env=None):
+    # 3d. the draws kernel against its twin, bit for bit, in both modes
+    t3d = time.perf_counter()
+    draws_main, draws_err = draws_kernel(dev, card, ct, o_cam, d_cam)
+    print(f"phase 3d took {time.perf_counter() - t3d:.1f} s")
+
+    # 4. the main paths through the CLI's code path; each render's draws
+    # launches and draw signatures by its image's name, and its draws held
+    # to their twin at its chunk
+    cli_draws = {}
+
+    def run_cli(argv, out_png, env=None, hold=True):
         args = cli.build_parser().parse_args(
             argv + ["--device", DEVICE, "-o", out_png])
-        with environ(env or {}):
+        name = os.path.splitext(os.path.basename(out_png))[0]
+        name = name.removeprefix("chip_smoke_")
+        with environ(env or {}), \
+                (recording_draws() if hold else contextlib.nullcontext({})) \
+                as seen:
             reset_counts()
             img, seconds, cfg, stats = cli.render_cli(args)
             counts = read_counts()
+            draws = read_draws()
+        cli_draws[name] = (draws, sorted(seen))
+        if hold:
+            hold_draws(f"render {name}", seen, draws,
+                       min(cfg.ray_chunk, cfg.num_pixels))
         img_np = img.numpy()
         write_png_out(out_png, img_np)
         return img_np, seconds, cfg, stats, counts
@@ -1893,6 +2192,7 @@ def main() -> int:
     img_np, seconds, cfg, stats, counts = run_cli(
         bunny_argv, os.path.join(out, "chip_smoke_bunny.png"))
     march_launches = counts[0]
+    draw_launches = cli_draws["bunny"][0]
     if march_launches <= 0 or counts[2] != 0:
         fail(f"the bunny path launched {counts[0]} march and {counts[2]} "
              f"window kernels")
@@ -2003,7 +2303,9 @@ def main() -> int:
         fail("the small rounds render launched no window kernel")
 
     # 6. the differentiable pass
-    fit_sweeps, grad_marches = differentiable(dev, card, march_img)
+    path_draws = {}
+    fit_sweeps, grad_marches = differentiable(dev, card, march_img,
+                                              path_draws)
 
     # 7. large scenes and long renders
     big_launches = large_scenes(dev, card, march_img, run_cli, bunny_argv,
@@ -2013,14 +2315,20 @@ def main() -> int:
     # and the oracle
     t8 = time.perf_counter()
     sharded_marches, sharded_sweeps = bvh_and_sharded(
-        dev, card, march_img, run_cli, bunny_argv, out)
+        dev, card, march_img, run_cli, bunny_argv, out, path_draws)
     print(f"phase 8 took {time.perf_counter() - t8:.1f} s")
 
     # 9. the entry points: the bench, the scaling bench and its proxy, the
     # inverse-rendering example, the compile-check entry
     t9 = time.perf_counter()
-    bench_marches, bench_sweeps = entry_points(dev, card, out)
+    bench_marches, bench_sweeps = entry_points(dev, card, out, path_draws)
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    # 10. the draws kernel on the paths: cornell with NEE and Russian
+    # roulette, the bunny's launches with the draws kernel and its twin
+    t10 = time.perf_counter()
+    draws_on_paths(run_cli, cli_draws, bunny_argv, out, card, cli, torch)
+    print(f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
     k2 = sweep["triangle camera"]
     k3 = window["round 1"]
@@ -2047,7 +2355,16 @@ def main() -> int:
         "replaces": "pathtracer_tpu/ops/cluster_sweep.py:66",
         "launches": window_launches, "max_abs_err": window_err,
         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[2],
-        "bound_by": k3[3], "library_ms": None}]}))
+        "bound_by": k3[3], "library_ms": None}, {
+        "name": "ray_uniforms", "route": "cuda",
+        "source": "pathtracer_tpu_torch/csrc/ray_uniforms.cu",
+        "replaces": None, "launches": draw_launches,
+        "path_launches": dict(path_draws,
+                              **{k: v[0] for k, v in cli_draws.items()}),
+        "max_abs_err": draws_err,
+        "ms": draws_main[0], "plain_ms": draws_main[1],
+        "bound_ms": draws_main[2], "bound_by": draws_main[3],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

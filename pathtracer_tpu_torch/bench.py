@@ -14,8 +14,9 @@ card's name, power limit, SM clock, temperature and count), ``walls_s``
 tables and kernel build, kept out of the walls), ``warmup_s``,
 ``peak_mem_mib`` (``torch.cuda.max_memory_allocated`` over the timed
 renders), ``launches`` (each kernel wrapper's launches over the timed
-renders, its counter reset just before them), ``correct`` and
-``check``.
+renders, its counter reset just before them), ``env`` (the
+``PT_CLUSTER_*`` knobs that are set: a line from another cluster plan is
+marked as such), ``correct`` and ``check``.
 
 Timing: a warm-up render at ``--seed`` builds the kernels' inputs, then
 ``--iters`` renders at seeds ``seed + 1 ..``, each timed on the host clock
@@ -70,7 +71,7 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("cluster_march", "dense_sweep", "window_sweep")
+KERNELS = ("cluster_march", "dense_sweep", "window_sweep", "ray_uniforms")
 # the correctness check's render: the bench's scene, accel and depth at
 # this size and spp, on the device and on the CPU twins
 CHECK_WIDTH, CHECK_HEIGHT, CHECK_SPP = 64, 36, 2
@@ -194,16 +195,27 @@ def device_stamp(on_card: bool) -> dict:
 
 def launch_counts() -> dict:
     """Each kernel wrapper's launches since its counter was last reset."""
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep, uniforms
     return {"cluster_march": cluster_sweep.MARCH_LAUNCHES,
             "dense_sweep": pallas_sweep.SWEEP_LAUNCHES,
-            "window_sweep": cluster_sweep.WINDOW_LAUNCHES}
+            "window_sweep": cluster_sweep.WINDOW_LAUNCHES,
+            "ray_uniforms": uniforms.UNIFORMS_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep, uniforms
     cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
     pallas_sweep.SWEEP_LAUNCHES = 0
+    uniforms.UNIFORMS_LAUNCHES = 0
+
+
+def env_knobs() -> dict:
+    """The ``PT_CLUSTER_*`` variables that are set, by name: the port's
+    knobs of how a render runs (``render/renderer.cluster_options``, the
+    march factory's ``PT_CLUSTER_RAYTILE``), stamped on the line as the JAX
+    bench stamps its log record."""
+    return {k: v for k, v in sorted(os.environ.items())
+            if k.startswith("PT_CLUSTER_")}
 
 
 def check_render(args, cfg, img) -> dict:
@@ -295,6 +307,7 @@ def measure(args) -> dict:
         "warmup_s": warmup_s if on_card else None,
         "peak_mem_mib": peak_mib,
         "launches": launches,
+        "env": env_knobs(),
         "config": {"width": cfg.width, "height": cfg.height, "spp": cfg.spp,
                    "depth": cfg.max_depth, "ray_chunk": cfg.ray_chunk,
                    "seed": args.seed, "iters": args.iters, "sky": cfg.sky,

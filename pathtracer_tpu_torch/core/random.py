@@ -20,6 +20,11 @@ Semantics, in the reference's terms:
 torch has no usable uint32 arithmetic, so words live in int64 tensors (or
 Python ints, for scalar keys) and every sum is masked to 32 bits. The same
 ``threefry2x32`` code serves both.
+
+:func:`uniform` and :func:`uniform_by_ray` are the plain twins of the draws
+kernel (``csrc/ray_uniforms.cu``). The renderer and the integrator draw
+through its wrapper, ``ops/uniforms``, which launches the kernel for a
+CUDA device and calls these twins for the CPU.
 """
 from __future__ import annotations
 

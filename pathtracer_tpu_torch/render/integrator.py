@@ -14,7 +14,8 @@ Sorted-wavefront mode (the cluster march's ``query_sorted``, R a multiple
 of the chunk): the march's binning sort carries the per-ray state and the
 wavefront stays in march order between bounces; one final unsort by ray id
 restores pixel order. Otherwise each bounce queries in caller order.
-Random draws are keyed by ray id, so they do not depend on lane order.
+Random draws are keyed by ray id, so they do not depend on lane order;
+they go through the draws kernel's wrapper (``ops/uniforms``).
 
 With ``nee`` (scenes with emissive prims) every diffuse or fuzzy-metal hit
 also samples one light point and casts a shadow ray (``render/lights``);
@@ -42,7 +43,7 @@ import torch
 
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core import vec
-from pathtracer_tpu_torch.ops import intersect
+from pathtracer_tpu_torch.ops import intersect, uniforms
 from pathtracer_tpu_torch.render import lights
 from pathtracer_tpu_torch.scene import materials
 from pathtracer_tpu_torch.scene.scene import Scene
@@ -150,11 +151,11 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                     "the closest-hit query carries autograd history: build "
                     "its tables from a detached scene (render/renderer."
                     "make_query)")
-        uniforms = prng.uniform_by_ray(bkey, rid, 6)
+        u_scatter = uniforms.uniform_by_ray(bkey, rid, 6)
         rec = intersect.hit_records_from_prims(
             scene, idx, o, d, t_min, intersect.BIG_T, hit_valid,
             packed=packed)
-        sc = materials.scatter(scene, rec, d, uniforms)
+        sc = materials.scatter(scene, rec, d, u_scatter)
 
         active = alive & hit_valid
         hit_emitter = active & sc.is_emissive
@@ -172,14 +173,15 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
         if rr and depth >= rr_depth:
             # decided for the continuation; the NEE bookkeeping below still
             # sees the bounce's own step
-            u_rr = prng.uniform_by_ray(prng.fold_in(bkey, 2), rid, 1)[:, 0]
+            u_rr = uniforms.uniform_by_ray(prng.fold_in(bkey, 2), rid,
+                                           1)[:, 0]
             killed = step & (u_rr >= K_RR_CONTINUE)
             rr_scale = torch.where(step & ~killed, K_RR_INV_CONTINUE, 1.0)
         else:
             killed = rr_scale = None
 
         if use_nee:
-            u_nee = prng.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
+            u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
             # every diffuse or glossy hit takes a light sample, whether or
             # not its own BSDF sample survives (sc.ok)
             take_direct = (active & ~sc.is_emissive

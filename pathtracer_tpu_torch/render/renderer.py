@@ -43,6 +43,7 @@ from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.core import camera as camera_mod
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core.sampling import sobol_owen_2d
+from pathtracer_tpu_torch.ops import uniforms
 from pathtracer_tpu_torch.ops.cluster_sweep import make_cluster_closest_hit
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
 from pathtracer_tpu_torch.ops.pallas_sweep import make_pallas_closest_hit
@@ -212,14 +213,14 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
                 pix_id = (row * cfg.width + col).to(torch.int64)
                 xi = torch.stack(sobol_owen_2d(s, pix_id, cfg.seed))
             else:
-                xi = prng.uniform(pkey, (2, chunk), dev)
+                xi = uniforms.uniform(pkey, (2, chunk), dev)
                 if m_strat > 1:
                     xi = torch.stack([(sx + xi[0]) * inv_m,
                                       (sy + xi[1]) * inv_m])
             u = (col + xi[0]) * w_inv
             v = (row + xi[1]) * h_inv
-            u_disk = prng.uniform(lkey1, (2, chunk), dev)
-            u_time = prng.uniform(lkey2, (chunk,), dev)
+            u_disk = uniforms.uniform(lkey1, (2, chunk), dev)
+            u_time = uniforms.uniform(lkey2, (chunk,), dev)
             # shutter time is unused: no ported scene moves
             o, d, _ = camera_mod.get_rays(cam, u, v, u_disk[0], u_disk[1],
                                           u_time)

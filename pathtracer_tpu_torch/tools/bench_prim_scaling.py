@@ -101,7 +101,8 @@ def wavefront(n: int, bunny: bool, device):
     import torch
 
     from pathtracer_tpu_torch.core import random as prng
-    u = prng.uniform(prng.PRNGKey(1), (n, 3), device)
+    from pathtracer_tpu_torch.ops import uniforms
+    u = uniforms.uniform(prng.PRNGKey(1), (n, 3), device)
     if bunny:
         tgt = torch.stack([u[:, 0] * 5.0 - 2.5, u[:, 1] * 5.0,
                            u[:, 2] * 4.0 - 2.0], dim=1)

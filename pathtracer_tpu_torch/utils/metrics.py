@@ -29,6 +29,15 @@ TRACE_FILE = "trace.json"
 # bytes/s and float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# 32-bit integer operations a second: 64 INT32 lanes per SM (the Hopper
+# white paper) against 128 float32 lanes that count 2 FLOP per FMA, so a
+# quarter of PEAK_F32 (132 SMs x 64 x 1.98 GHz)
+PEAK_INT32 = PEAK_F32 / 4
+# int32 operations of one threefry2x32 block (20 rounds of add, rotate and
+# xor, 5 key injections of 3 sums, the key schedule) and of turning a word
+# into a float in [0, 1) (shift, or, subtract): the draws kernel's bound
+OPS_THREEFRY = 20 * 3 + 5 * 3 + 2 + 2
+OPS_TO_UNIT = 3
 # float32 operations per (ray, primitive) pair: 23 per pair scalar (12
 # products, 11 sums) times the scalars the primitive needs (sphere 2,
 # triangle 4), its epilogue (sphere 14, triangle 13) and the merge compare

@@ -102,7 +102,27 @@ def test_bench_line_and_counts_match_jax(scene):
     assert 0 < rec["executed_queries"] <= rec["nominal_queries"]
     assert (rec["shadow_queries"] > 0) == (scene == "cornell")
     assert rec["pair_tests"] == 0 and rec["launches"] == {
-        "cluster_march": 0, "dense_sweep": 0, "window_sweep": 0}
+        "cluster_march": 0, "dense_sweep": 0, "window_sweep": 0,
+        "ray_uniforms": 0}
+
+
+def test_bench_stamps_its_environment_knobs():
+    """The line's ``env`` holds every PT_CLUSTER_* variable set (the port's
+    knobs of how a render runs) and no other: the reference's PT_RNG_* and
+    PT_SORT_* options, which the port does not read, are not stamped."""
+    knobs = {"PT_CLUSTER_K": "32", "PT_CLUSTER_SORT": "0"}
+    others = {"PT_RNG_HASH": "1", "PT_SORT_ONCE": "1"}
+    stamped = {k: v for k, v in _env(**knobs, **others).items()
+               if k.startswith("PT_CLUSTER_")}
+    argv = ["--device", "cpu", "--scene", "cornell", "--accel", "cluster",
+            "--width", "32", "--height", "16", "--spp", "1", "--depth", "3",
+            "--iters", "1", "--ray-chunk", "512"]
+    rc, lines, proc = _bench(argv, **knobs, **others)
+    assert rc == 0 and len(lines) == 1, (proc.stdout, proc.stderr[-2000:])
+    env = lines[0]["env"]
+    assert env == stamped and knobs.items() <= env.items()
+    assert not any(k.startswith(("PT_RNG_", "PT_SORT_", "PT_BENCH_"))
+                   for k in env)
 
 
 def test_bench_without_a_card_fails_at_once():

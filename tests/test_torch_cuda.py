@@ -23,7 +23,7 @@ import torch
 from pathtracer_tpu_torch.config import K_SHADOW_T_MIN, RenderConfig
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core.camera import get_rays
-from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep
+from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep, uniforms
 from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
 from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, pack_sweep_tables,
@@ -756,3 +756,80 @@ def test_entry_step_on_the_card(gpu):
     assert cluster_sweep.MARCH_LAUNCHES > 0
     assert torch.equal(img, make_renderer(cfg, gpu)(scene, cam, 0))
     assert np.isfinite(dryrun_multichip(2, device="cuda"))
+
+
+def _draw_ids(kind, dev):
+    """Ray ids from a march's binning order of the bunny's 57,600-ray
+    camera wavefront ("march"), the same order counted down from 2^29 - 1,
+    the sorted wavefront's largest id ("top"), or the first 57,500 of the
+    march's, which the 256-thread block does not divide ("tail")."""
+    scene, cam = get_world("bunny", device=dev)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, 57600, dev)
+    rid = cluster_sweep.march_inputs(ct, o, d, T_MIN)["rid"].to(torch.int32)
+    if kind == "top":
+        return (1 << 29) - 1 - rid
+    return rid if kind == "march" else rid[:57500]
+
+
+@pytest.mark.parametrize("ids", ["march", "top", "tail"])
+@pytest.mark.parametrize("m", [1, 3, 6])
+def test_uniforms_kernel_matches_twin(gpu, m, ids):
+    """The draws kernel's "by_ray" mode against its twin on the card and
+    on the CPU, to the bit; one launch counted per draw set."""
+    rid = _draw_ids(ids, gpu)
+    for key in ((0, 0), prng.fold_in(prng.PRNGKey(5), 3), (0xFFFFFFFF, 1)):
+        before = uniforms.UNIFORMS_LAUNCHES
+        got = uniforms.uniform_by_ray(key, rid, m)
+        assert uniforms.UNIFORMS_LAUNCHES == before + 1
+        twin = prng.uniform_by_ray(key, rid, m)
+        assert uniforms.UNIFORMS_LAUNCHES == before + 1
+        assert got.shape == (rid.shape[0], m) and got.device == rid.device
+        assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
+        cpu = uniforms.uniform_by_ray(key, rid.cpu(), m)
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (2, 57600), (57600,),
+                                   (2, 7200), (90000,), (3, 5, 4)])
+def test_flat_uniforms_kernel_matches_twin(gpu, shape):
+    key = prng.split(prng.fold_in(prng.PRNGKey(2), 11), 4)[2]
+    before = uniforms.UNIFORMS_LAUNCHES
+    got = uniforms.uniform(key, shape, gpu)
+    assert uniforms.UNIFORMS_LAUNCHES == before + 1
+    twin = prng.uniform(key, shape, gpu)
+    assert got.shape == shape
+    assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
+    assert torch.equal(got.cpu(), uniforms.uniform(key, shape, "cpu"))
+
+
+def test_uniforms_wrapper_rejects_bad_inputs(gpu):
+    rid = torch.arange(64, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError):
+        uniforms.uniform_by_ray((1, 2), rid.view(8, 8), 3)
+    with pytest.raises(ValueError):
+        uniforms.uniform_by_ray((1, 2), rid, 0)
+    before = uniforms.UNIFORMS_LAUNCHES
+    assert uniforms.uniform_by_ray((1, 2), rid[:0], 3).shape == (0, 3)
+    assert uniforms.UNIFORMS_LAUNCHES == before
+    # an int64 rid takes the kernel with the same low 32 bits
+    got = uniforms.uniform_by_ray((1, 2), rid.long() + (1 << 32), 3)
+    assert torch.equal(got, uniforms.uniform_by_ray((1, 2), rid, 3))
+
+
+def test_small_nee_rr_render_draws_on_the_card(gpu):
+    """Cornell with NEE and Russian roulette from bounce 1 through the
+    dense sweep (every draw set: flat, m = 6, 3 and 1), on the card with
+    the draws kernel against the same render on the CPU."""
+    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=3,
+                       ray_chunk=1000, accel="pallas", scene="cornell",
+                       sky=False, nee=True, rr=True, rr_depth=1, seed=3)
+    scene, cam = get_world("cornell", device=gpu)
+    uniforms.UNIFORMS_LAUNCHES = pallas_sweep.SWEEP_LAUNCHES = 0
+    g = make_renderer(cfg, gpu)(scene, cam).cpu().numpy()
+    assert uniforms.UNIFORMS_LAUNCHES > 0 and pallas_sweep.SWEEP_LAUNCHES > 0
+    scene_c, cam_c = get_world("cornell", device="cpu")
+    c = make_renderer(cfg, "cpu")(scene_c, cam_c).numpy()
+    diff = np.abs(g - c)
+    assert np.isfinite(g).all()
+    assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3
