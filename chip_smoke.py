@@ -147,9 +147,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    must be among those held to the twin; (b) the bunny render's wall and,
    under ``torch.profiler``, its CUDA kernel launches, once as built and
    once with every draw patched to its plain twin (in this script only),
-   the two images bit-equal.
+   the two images bit-equal;
+11. the native host library (``native/``; host C++ built with g++, not a
+   device kernel): (a) right after the build, before any phase parses the
+   bunny: g++ builds ``native/src/ptnative.cpp`` on this host (seconds and
+   zlib route printed); the vendored bunny (1,817 v, 3,616 f: with the
+   three spheres, the pinned 3,619 prims) and the OBJ files of fault F5
+   parse to the same bits through the native parser and its twin
+   (``io/obj.load_obj_python``), each bunny parse timed on the host clock
+   (median of 5); (b) phase 4's bunny image, written through the native
+   encoder, byte-equal to the twin encoder's bytes (``io/png.encode_png``).
 
-The line before the last is a JSON object with each kernel's route,
+A line ``native {...}`` carries phase 11's readings. The line after it,
+before the last, is a JSON object with each kernel's route,
 source, launches on its main path (and, for the march and the dense
 sweep, ``diff_launches`` on the differentiable path,
 ``sharded_launches`` on phase 8's 2x1 sharded bunny render and sharded
@@ -1877,6 +1887,110 @@ def draws_on_paths(run_cli, cli_draws, bunny_argv, out, card, cli, torch):
     print("bunny through the draws kernel vs through its twin: bit-equal")
 
 
+# OBJ files on which the port's parser once differed from the reference's
+# native one (fault F5), and a line longer than the reference's 4,095-byte
+# buffer (the port reads it whole): the native parser and its twin must agree
+F5_TRI = "v 0 0 0\nv 1 0 0\nv 0 1 0\n"
+F5_CASES = {
+    "tab after the tag": "v\t0 0 0\nv\t1 0 0\nv\t0 1 0\nf\t1 2 3\n",
+    "trailing comment": F5_TRI + "f 1 2 3 # c\n",
+    "bad index token": F5_TRI + "v 1 1 0\nf 1 2 x 3\n",
+    "empty index": F5_TRI + "f 1 /2 2 3\n",
+    "short v": F5_TRI + "v 0 0\nv 1 2 abc\nf 1 2 3\n",
+    "hex float": "v 0x1p3 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n",
+    "CRLF, nan, inf, -0": "v nan -inf 1e400\r\nv -nan -0 0\r\nv 0 1 0\r\n"
+                          "f -3 +2 0\r\n",
+    "a 4,802-byte face": F5_TRI + "f " + " ".join(
+        str(1 + i % 3) for i in range(2400)) + "\n",
+}
+
+
+def native_library(out):
+    """Phase 11a, host work before any bunny phase: build the port's native
+    library (``native/src/ptnative.cpp``) on this host, parse the vendored
+    bunny and the F5 cases through it and through the twin
+    (``io/obj.load_obj_python``), which must agree bit for bit, and time
+    both parses of the bunny. Returns the ``native`` line's fields."""
+    import zlib
+
+    import numpy as np
+
+    from pathtracer_tpu_torch.io import obj
+    from pathtracer_tpu_torch.native import bindings, build
+    from pathtracer_tpu_torch.scene.bunny import ASSET_OBJ
+
+    def same(a, b):
+        return (a[0].shape == b[0].shape and a[1].shape == b[1].shape
+                and np.array_equal(a[0].view(np.uint32), b[0].view(np.uint32))
+                and np.array_equal(a[1], b[1]))
+
+    built = not os.path.exists(build.library_path())
+    t0 = time.perf_counter()
+    try:
+        lib = build.build()
+        bindings.available()
+    except RuntimeError as e:
+        fail(f"the native host library does not build: {e}")
+    build_s = time.perf_counter() - t0
+    # the source includes <zlib.h> and links -lz: this host's zlib, the one
+    # Python's zlib module reports
+    zlib_route = f"<zlib.h>, -lz (zlib {zlib.ZLIB_RUNTIME_VERSION})"
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    print(f"native: {'built' if built else 'found (built earlier)'} "
+          f"{os.path.relpath(lib, HERE)}, {gxx} "
+          f"{' '.join(build.GXX_FLAGS + build.LIBS)}, {build_s:.3f} s; "
+          f"zlib route {zlib_route}")
+    native, twin = obj.load_obj(ASSET_OBJ), obj.load_obj_python(ASSET_OBJ)
+    if not same(native, twin):
+        fail("the bunny through the native parser differs from the twin's")
+    n_v, n_f = native[0].shape[0], native[1].shape[0]
+    if (n_v, n_f + 3) != (1817, BUNNY_PRIMS):
+        fail(f"the native parser read {n_v} vertices and {n_f} faces of "
+             f"{ASSET_OBJ}, expected 1,817 and {BUNNY_PRIMS - 3}")
+    f5_dir = os.path.join(out, "chip_smoke_f5")
+    os.makedirs(f5_dir, exist_ok=True)
+    for i, (name, text) in enumerate(F5_CASES.items()):
+        path = os.path.join(f5_dir, f"case{i}.obj")
+        with open(path, "w", newline="") as f:
+            f.write(text)
+        if not same(obj.load_obj(path), obj.load_obj_python(path)):
+            fail(f"F5 case {name!r}: the native parser and its twin differ")
+    card = card_line()
+    times = {}
+    for what, fn in (("native", obj.load_obj), ("twin", obj.load_obj_python)):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(ASSET_OBJ)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[what] = statistics.median(runs)
+    print(f"native: bunny ({n_v} v, {n_f} f, {n_f + 3} prims) and "
+          f"{len(F5_CASES)} F5 cases equal through the native parser and "
+          f"its twin; bunny parse, host ms (median of 5): native "
+          f"{times['native']:.3f}, twin {times['twin']:.3f} [{card}]")
+    return {"source": "pathtracer_tpu_torch/native/src/ptnative.cpp",
+            "route": "host C++, g++, not a device kernel",
+            "library": os.path.relpath(lib, HERE), "compiler": gxx,
+            "built": built, "build_s": build_s, "zlib": zlib_route,
+            "bunny_prims": n_f + 3,
+            "f5_cases": len(F5_CASES), "bunny_parse_host_ms": times}
+
+
+def native_png(path, img_np):
+    """Phase 11b: the image ``write_png`` wrote to ``path`` through the
+    native encoder must equal, byte for byte, what the twin ``encode_png``
+    makes of it."""
+    from pathtracer_tpu_torch.io.png import encode_png, quantize
+    with open(path, "rb") as f:
+        data = f.read()
+    if data != encode_png(quantize(img_np[::-1])):
+        fail(f"{path}: the native PNG encoder and its twin differ")
+    print(f"native: {os.path.relpath(path, HERE)} ({len(data)} bytes) "
+          f"byte-equal to the twin encoder's")
+    return len(data)
+
+
 def write_png_out(path, img_np):
     from pathtracer_tpu_torch.io.png import write_png
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -2011,6 +2125,12 @@ def main() -> int:
         if name == "cluster_march" and any(st or ld for _, _, st, ld
                                            in summary):
             fail("the march kernel spills (ptxas above)")
+
+    # 11a. the native host library, before any phase parses the bunny
+    out = os.path.join(HERE, "out")
+    t11 = time.perf_counter()
+    native_line = native_library(out)
+    print(f"phase 11a took {time.perf_counter() - t11:.1f} s")
 
     # 3a. the cluster march against its twin, on the vendored scan (every
     # bunny phase measures it, not the procedural stand-in mesh)
@@ -2186,7 +2306,6 @@ def main() -> int:
               f"{n_pairs:.0f} march pair tests,"
               f" image mean {mean:.5f} [{card}]")
 
-    out = os.path.join(HERE, "out")
     bunny_argv = ["--scene", "bunny", "--width", "640", "--height", "360",
                   "--spp", "8", "--max-depth", "4", "--ray-chunk", str(RAYS)]
     img_np, seconds, cfg, stats, counts = run_cli(
@@ -2199,6 +2318,9 @@ def main() -> int:
     mean = check_image("bunny", img_np, (360, 640, 3), 0.3, 0.95)
     report("bunny", seconds, cfg, stats, counts, mean)
     march_img = img_np
+    # 11b. the image just written through the native PNG encoder
+    native_line["bunny_png_bytes"] = native_png(
+        os.path.join(out, "chip_smoke_bunny.png"), img_np)
 
     img_np, seconds, cfg, stats, counts = run_cli(
         ["--preset", "cornell-full", "--accel", "pallas", "--ray-chunk",
@@ -2332,6 +2454,7 @@ def main() -> int:
 
     k2 = sweep["triangle camera"]
     k3 = window["round 1"]
+    print("native " + json.dumps(native_line))
     print(json.dumps({"kernels": [{
         "name": "cluster_march", "route": "cuda",
         "source": "pathtracer_tpu_torch/csrc/cluster_march.cu",

@@ -1,4 +1,5 @@
-"""Hit-record container and the face-normal flip (``core/rays.py``)."""
+"""Ray and hit-record containers, and the face-normal flip
+(``core/rays.py``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -6,6 +7,17 @@ from typing import NamedTuple
 import torch
 
 from pathtracer_tpu_torch.core import vec
+
+
+class Rays(NamedTuple):
+    """A batch of N rays: origin, direction, shutter time."""
+    origin: torch.Tensor     # (N, 3)
+    direction: torch.Tensor  # (N, 3)
+    time: torch.Tensor       # (N,)
+
+    def at(self, t):
+        """The point at parameter t along each ray."""
+        return self.origin + t[..., None] * self.direction
 
 
 class HitRecords(NamedTuple):

@@ -32,6 +32,13 @@ def uniform_in_sphere(u1, u2, u3):
     return uniform_on_sphere(u1, u2) * torch.pow(u3, 1.0 / 3.0)[..., None]
 
 
+def uniform_on_hemisphere(u1, u2, normal):
+    """Uniform direction in the hemisphere around ``normal``: a sphere
+    sample, flipped to the normal's side."""
+    d = uniform_on_sphere(u1, u2)
+    return torch.where(vec.dot(d, normal, keepdim=True) > 0.0, d, -d)
+
+
 def uniform_in_disk(u1, u2):
     """Uniform point in the unit disk, z = 0."""
     r = torch.sqrt(u1)

@@ -10,6 +10,7 @@ import torch
 PI = 3.1415926535897932385
 PI_INV = 0.31830988618
 DEG_TO_RAD = 0.01745329252
+INFINITY = float("inf")
 
 NEAR_ZERO_EPS = 1e-7
 
@@ -61,6 +62,10 @@ def safe_sqrt(x):
 def near_zero(a):
     """True where all components are < 1e-7 in magnitude."""
     return torch.all(torch.abs(a) < NEAR_ZERO_EPS, dim=-1)
+
+
+def lerp(a, b, t):
+    return (1.0 - t) * a + t * b
 
 
 def degrees_to_radians(deg):

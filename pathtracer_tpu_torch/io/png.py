@@ -1,9 +1,11 @@
-"""Minimal PNG writer and reader (numpy copy of ``io/png.py``).
+"""PNG output and input.
 
 Quantization: clamp to [0, 0.999], multiply by 256, truncate to a byte.
 Row 0 of the renderer's framebuffer is the bottom scanline, so rows are
-flipped on write. The reader takes 8-bit, non-interlaced images (texture
-files).
+flipped on write. :func:`write_png` encodes through the port's native
+library (``native/src/ptnative.cpp``: filter byte 0 on every row, zlib level
+6, one IDAT chunk); :func:`encode_png` is its plain twin, byte for byte, for
+the tests. The reader takes 8-bit, non-interlaced images (texture files).
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from pathtracer_tpu_torch.native import bindings
 
 
 def quantize(img: np.ndarray) -> np.ndarray:
@@ -27,7 +31,8 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
 
 
 def encode_png(rgba: np.ndarray) -> bytes:
-    """RGBA8 (H, W, 4) -> PNG bytes."""
+    """RGBA8 (H, W, 4) -> PNG bytes: the plain twin of the native
+    encoder."""
     h, w = rgba.shape[:2]
     raw = b"".join(b"\x00" + rgba[y].tobytes() for y in range(h))
     return (b"\x89PNG\r\n\x1a\n"
@@ -37,12 +42,12 @@ def encode_png(rgba: np.ndarray) -> bytes:
 
 
 def write_png(path: str, img, flip_rows: bool = True) -> None:
-    """Write an f32 [0,1] (H, W, 3) image (numpy array or CPU tensor)."""
+    """Write an f32 [0,1] (H, W, 3) image (numpy array or CPU tensor)
+    through the native encoder."""
     img = np.asarray(img)
     if flip_rows:
         img = img[::-1]
-    with open(path, "wb") as f:
-        f.write(encode_png(quantize(img)))
+    bindings.write_png(path, quantize(img))
 
 
 def read_png(path: str) -> np.ndarray:
