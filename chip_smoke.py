@@ -91,11 +91,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    step with the launch counters reset just before it and read just
    after: (a) the LBVH of the bunny and of its level-2 subdivision built
    on the card, equal array by array to the CPU build, both timed; (b)
-   the BVH query (plain tensor ops, no kernel) on the bunny's 57,600-ray
-   camera wavefront against the march (K1): the same winners but at near
-   ties, with its time, traversal steps and the aten ops it dispatches;
-   (c) the bunny at 160x90, 1 spp, depth 4 through the CLI on the "bvh"
-   route (no kernel launched), bit-equal to the brute route; (d) the
+   the traversal kernel (``csrc/bvh_traverse.cu``) bit-equal to its twin
+   (``traverse_reference``) on four 57,600-ray wavefronts: the bunny's
+   camera wavefront, its one bounce, NEE shadow segments from its hits
+   (t_min K_SHADOW_T_MIN, unnormalised) and the level-2 bunny's camera
+   wavefront; each query one launch with no host sync inside
+   (``torch.cuda.set_sync_debug_mode``) and no march, sweep or window
+   launch; with the kernel's time (CUDA events), the twin's (one call,
+   its steps counted through ``ray_aabb_hit``), the march's whole query on
+   the same rays, the bound from the visits the twin made, and the longest
+   ray's steps; on the camera wavefront the winners equal the march's but
+   at near ties, and the twin's aten ops are counted; (c) the bunny at
+   160x90, 1 spp, depth 4 and cornell-full at 64x64 (16 spp, depth 4,
+   NEE: the shadow query) through the CLI on the "bvh" route, each
+   bit-equal to the brute route, one traversal launch a query; (c') the
+   bunny at the bench shape (640x360, 8 spp, depth 4, 57,600-ray chunks)
+   on the "bvh" route through the CLI, bit-equal to the "brute" route's
+   image at that shape and within mean |diff| 1e-3 of phase 4's march
+   image (the march's pair-scalar t differs at near ties, and four bounces
+   carry it past 1e-4 on ~2% of channels), one launch and no host sync a
+   traversal call, its wall beside the march route's in this process;
+   (d) the
    sharded renderer on meshes of the one card ([cuda:0] 1x1, [cuda:0] * 2
    as 2x1 and 1x2) at the bench shape: the rays-only images bit-equal to
    the single render with the plan's chunk (57,600 and 28,800 rays), the
@@ -109,7 +125,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    the unsharded step with the plan's chunk: loss and every gradient
    entry within rtol 1e-5 (atol 1e-9); (g) a
    ``ViewerSession`` on the test world's "bvh" route for 3 frames, a move
-   and a frame, then ``python -m pathtracer_tpu_torch --interactive`` on
+   and a frame (the traversal kernel launched, and bit-equal to its twin
+   on the first and last call it recorded, 2,304 rays each), then ``python -m pathtracer_tpu_torch --interactive`` on
    it under a pseudo-terminal: "w" after two frames, ESC after two more;
    it must exit 0 with its frames printed and restart its passes after the
    move;
@@ -123,7 +140,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    whose measured child resets the counters just before its timed renders
    and reports them in its line: exactly one JSON line, ``correct``, a
    positive rate, executed queries within the nominal, ``march_mfu`` at
-   most 1, this card's name, the march launched; (b) the bench on the
+   most 1, this card's name, the march launched; then ``--accel bvh`` at
+   the same defaults, in its own processes too: ``correct``, every query
+   executed, one traversal launch a closest-hit query of each timed render
+   and no march, sweep or window launch; (b) the bench on the
    triangle world (800x450, 2 spp, depth 50) and on cornell (256x256, 16
    spp, depth 4, NEE), in phase 4's chunks (90,000 and 65,536 rays, which
    divide the images), each through the dense sweep (``--accel pallas``)
@@ -134,7 +154,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    example at its defaults (48x48, 8 spp, depth 2, NEE, "brute", 60
    Adam steps): the loss must fall tenfold and the albedo error fall; (e)
    ``entry()``'s step bit-equal to ``render_image`` through the march,
-   then ``dryrun_multichip(2)`` on ``[cuda:0] * 2``. In (c) and (e) the
+   then ``dryrun_multichip(2)`` on ``[cuda:0] * 2``, whose BVH leg must
+   launch the traversal kernel, bit-equal to its twin on the first and last
+   call it recorded (64-ray chunks). In (c) and (e) the
    march and the dense sweep record the arguments of their first and
    last calls that do work, at each wavefront size the step gives them
    (the proxy's 7,200-ray chunks, the entry's 14,400, the dry run's
@@ -168,8 +190,12 @@ at the bench's defaults, the dense sweep's on 9b's pallas runs, each over
 the timed renders); for the march, ``big_launches`` on the level-2
 big-scene render; for ``ray_uniforms``, which replaces no Pallas kernel,
 ``path_launches`` on every path named above and the times of its
-largest main-path set, by_ray m = 6 on 57,600 ids), error, times and
-bound; the last line is ``{"ok": true, "device": {...}}``.
+largest main-path set, by_ray m = 6 on 57,600 ids; for ``bvh_traverse``,
+which replaces no Pallas kernel, launches on 8c''s bench-shape bunny,
+``path_launches`` on each "bvh" render of 8c and 8c', 8g's viewer
+session, 9a's bench and 9e's dry run, and the times of the bunny's camera
+wavefront), error, times and bound; the last line is
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
 
@@ -244,6 +270,8 @@ metrics = load_metrics()
 PEAK_BYTES, PEAK_F32 = metrics.PEAK_BYTES, metrics.PEAK_F32
 OPS_SPHERE_PAIR, OPS_TRI_PAIR = metrics.OPS_SPHERE_PAIR, metrics.OPS_TRI_PAIR
 OPS_SPHERE_BASE, OPS_TRI_BASE = metrics.OPS_SPHERE_BASE, metrics.OPS_TRI_BASE
+OPS_TRAV_RAY, OPS_BOX_VISIT = metrics.OPS_TRAV_RAY, metrics.OPS_BOX_VISIT
+OPS_SPHERE_TEST, OPS_TRI_TEST = metrics.OPS_SPHERE_TEST, metrics.OPS_TRI_TEST
 
 
 def fail(msg: str):
@@ -311,7 +339,7 @@ def nbytes(*xs) -> int:
 def kernel_label(mangled: str) -> str:
     """A kernel's short name from its mangled one."""
     m = re.search(r"(cluster_march|dense_sweep|window_sweep|flat_uniforms|"
-                  r"ray_uniforms)_kernel", mangled)
+                  r"ray_uniforms|bvh_traverse)_kernel", mangled)
     return m.group(1) if m else mangled
 
 
@@ -558,30 +586,17 @@ def march_wavefronts(dev):
     d = 0), sorted as the render sorts them, and NEE shadow segments from
     the camera hits to points above the bunny (t_min K_SHADOW_T_MIN, t_max
     1, in caller order, as the shadow query runs)."""
-    import torch
     from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
-    from pathtracer_tpu_torch.core import random as prng
-    from pathtracer_tpu_torch.ops import cluster_sweep, intersect
+    from pathtracer_tpu_torch.ops import cluster_sweep
     from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
     from pathtracer_tpu_torch.render.renderer import CLUSTER_K
-    from pathtracer_tpu_torch.scene import materials
     from pathtracer_tpu_torch.scene.worlds import get_world
     scene, cam = get_world("bunny", device=dev)
     ct = build_cluster_tables(scene, K=CLUSTER_K)
     o_cam, d_cam = camera_wavefront(dev, cam, RAYS, 0)
     idx, t, valid = cluster_sweep.cluster_march(ct, o_cam, d_cam, T_MIN)
-    rec = intersect.hit_records_from_prims(ct.scene, idx, o_cam, d_cam,
-                                           T_MIN, intersect.BIG_T, valid)
-    sc = materials.scatter(ct.scene, rec, d_cam, prng.uniform_by_ray(
-        prng.PRNGKey(0), torch.arange(RAYS, device=dev), 6))
-    alive = valid & sc.ok
-    o_b = torch.where(alive[:, None], rec.p, o_cam)
-    d_b = torch.where(alive[:, None], sc.direction, 0.0)
-    u = prng.uniform(prng.fold_in(prng.PRNGKey(4), 1), (RAYS, 3), dev)
-    light = (torch.tensor([-6.0, 2.0, -6.0], device=dev)
-             + u * torch.tensor([12.0, 10.0, 12.0], device=dev))
-    p = o_cam + t[:, None] * d_cam
-    seg = torch.where(valid[:, None], light - p, 0.0)
+    o_b, d_b, p, seg = bounce_and_shadow(dev, ct.scene, idx, t, valid,
+                                         o_cam, d_cam)
     return ct, (o_cam, d_cam), [
         (name, cluster_sweep.march_inputs(ct, o, d, T_MIN)["args"])
         for name, o, d in (("camera", o_cam, d_cam), ("bounce", o_b, d_b))
@@ -725,6 +740,76 @@ def read_draws() -> int:
     """The draws kernel's launches since the last reset."""
     from pathtracer_tpu_torch import bench
     return bench.launch_counts()["ray_uniforms"]
+
+
+def read_traversals() -> int:
+    """The traversal kernel's launches since the last reset."""
+    from pathtracer_tpu_torch import bench
+    return bench.launch_counts()["bvh_traverse"]
+
+
+def twin_visits(nodes, o, d, t_min):
+    """The traversal's plain twin on (o, d), with its work counted through
+    its calls of ``ray_aabb_hit`` and ``intersect_prims``: (counts, the
+    twin's result). Counts: "steps" the twin took, "visits" the node
+    visits of all rays before each reached the done row (the kernel's loop
+    trips), "longest" the most a ray took, and the primitive tests the
+    kernel makes ("spheres", "triangles": leaves whose box is hit)."""
+    import torch
+    from pathtracer_tpu_torch.ops import intersect, traversal
+    from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE
+    aabb, prims = intersect.ray_aabb_hit, intersect.intersect_prims
+    per_ray = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    tests = torch.zeros(2, dtype=torch.int64, device=o.device)
+    state = {"steps": 0, "box": None}
+
+    def counting_aabb(o_, d_, bmin, bmax, t_min_, t_max_):
+        hit = aabb(o_, d_, bmin, bmax, t_min_, t_max_)
+        live = bmin[:, 0] < 1e38          # the done row's box min is 3e38
+        per_ray.add_(live)
+        state["steps"] += 1
+        state["box"] = hit & live
+        return hit
+
+    def counting_prims(o_, d_, ptype, *rest):
+        tested = state["box"] & (ptype > 0)
+        sph = ptype == PRIM_SPHERE
+        tests[0] += (tested & sph).sum()
+        tests[1] += (tested & ~sph).sum()
+        return prims(o_, d_, ptype, *rest)
+    with mock.patch.object(intersect, "ray_aabb_hit", counting_aabb), \
+            mock.patch.object(intersect, "intersect_prims", counting_prims):
+        result = traversal.traverse_reference(nodes, o, d, t_min,
+                                              intersect.BIG_T)
+    return {"steps": state["steps"], "visits": int(per_ray.sum()),
+            "longest": int(per_ray.max()), "spheres": int(tests[0]),
+            "triangles": int(tests[1])}, result
+
+
+def bounce_and_shadow(dev, scene, idx, t, valid, o_cam, d_cam):
+    """From a camera wavefront's closest hits (``idx`` in ``scene``'s
+    order): its one bounce (the hits shaded, dead lanes with d = 0) and
+    NEE shadow segments from the hits to points above the bunny
+    (unnormalised, zero where the camera ray missed), as (o_b, d_b, p,
+    seg)."""
+    import torch
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import intersect
+    from pathtracer_tpu_torch.scene import materials
+    n = o_cam.shape[0]
+    rec = intersect.hit_records_from_prims(scene, idx, o_cam, d_cam, T_MIN,
+                                           intersect.BIG_T, valid)
+    sc = materials.scatter(scene, rec, d_cam, prng.uniform_by_ray(
+        prng.PRNGKey(0), torch.arange(n, device=dev), 6))
+    alive = valid & sc.ok
+    o_b = torch.where(alive[:, None], rec.p, o_cam)
+    d_b = torch.where(alive[:, None], sc.direction, 0.0)
+    u = prng.uniform(prng.fold_in(prng.PRNGKey(4), 1), (n, 3), dev)
+    light = (torch.tensor([-6.0, 2.0, -6.0], device=dev)
+             + u * torch.tensor([12.0, 10.0, 12.0], device=dev))
+    p = o_cam + t[:, None] * d_cam
+    seg = torch.where(valid[:, None], light - p, 0.0)
+    return o_b, d_b, p, seg
 
 
 def differentiable(dev, card, march_img, path_draws):
@@ -1040,7 +1125,9 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
     each step and read just after; ``march_img`` is phase 4's one-pass
     bunny image and ``run_cli`` phase 4's CLI runner. Returns (march
     launches of the 2x1 sharded bunny, dense sweep launches of the
-    sharded train step)."""
+    sharded train step, the traversal kernel's readings: (ms, plain ms,
+    bound ms, bound by) on the bunny's camera wavefront, its max |dt|
+    against the twin, its launches on each "bvh" path)."""
     import pty
     import select
     import socket
@@ -1049,6 +1136,7 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
     import torch
     from pathtracer_tpu_torch import oracle
     from pathtracer_tpu_torch.accel.lbvh import build_lbvh
+    from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
     from pathtracer_tpu_torch.ops import cluster_sweep, intersect, traversal
     from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
     from pathtracer_tpu_torch.parallel import (initialize_distributed,
@@ -1071,10 +1159,11 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
         return result, time.perf_counter() - t0
 
     # 8a. the LBVH of the bunny and of the level-2 bunny, on the card and
-    # on the CPU
+    # on the CPU; the card's builds are kept for 8b
+    card_builds = {}
     for level in (0, BIG_SCENE_LEVELS[0]):
-        scene = bunny_world(subdivide=level, device="cpu")[0] if level \
-            else get_world("bunny", device="cpu")[0]
+        scene, cam_l = bunny_world(subdivide=level, device="cpu")[:2] \
+            if level else get_world("bunny", device="cpu")
         cpu, cpu_s = timed(lambda: build_lbvh(scene))
         scene_g = scene.to(dev)
         build_lbvh(scene_g)                          # warm-up
@@ -1086,74 +1175,200 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
         print(f"LBVH bunny level {level} ({scene.num_prims} prims, "
               f"{card_bvh.num_nodes} nodes): card build {card_s:.4f} s, CPU "
               f"build {cpu_s:.4f} s, all seven arrays equal [{card}]")
+        card_builds[level] = (scene_g, cam_l.to(dev), card_bvh)
     del scene, scene_g, cpu, card_bvh
 
-    # 8b. the BVH query on the bunny's camera wavefront against K1
+    # 8b. the traversal kernel against its twin on four wavefronts, and
+    # the march (K1) on the same rays
     scene, cam = get_world("bunny", device=dev)
     ct = build_cluster_tables(scene, K=CLUSTER_K)
+    nodes = traversal.pack_fat_nodes(scene, card_builds[0][2])
     o, d = camera_wavefront(dev, cam, RAYS, 0)
     idx_m, t_m, v_m = cluster_sweep.cluster_march(ct, o, d, T_MIN)
     b_m = torch.where(v_m, ct.perm[idx_m.long()], -1)
-    closest = traversal.make_bvh_closest_hit(scene, build_lbvh(scene),
-                                             T_MIN)
-    steps = []
-    aabb = intersect.ray_aabb_hit
-
-    def counting(*args):
-        steps[-1] += 1
-        return aabb(*args)
-    steps.append(0)
-    reset_counts()
-    with mock.patch.object(intersect, "ray_aabb_hit", counting):
-        (idx_b, t_b, v_b), query_s = timed(lambda: closest(o, d))
-    if read_counts() != (0, 0, 0):
-        fail(f"the BVH query launched {read_counts()} (march, sweep, "
-             f"window) kernels")
-    steps.append(0)
-    with op_counter() as ops, \
-            mock.patch.object(intersect, "ray_aabb_hit", counting):
-        closest(o, d)
-    if steps[1] != steps[0]:
-        fail(f"the BVH query took {steps[0]} then {steps[1]} steps")
-    b_b = torch.where(v_b, idx_b, -1)
-    err = compare_hits("BVH vs march (camera)", t_b.cpu().numpy(),
-                       b_b.cpu().numpy(), t_m.cpu().numpy(),
-                       b_m.cpu().numpy(), scene.prim_type.cpu().numpy())
-    bvh_ms = cuda_ms(lambda: closest(o, d), torch, reps=3)
-    march_ms = cuda_ms(lambda: cluster_sweep.cluster_march(ct, o, d, T_MIN),
-                       torch)
-    print(f"BVH query, bunny camera wavefront ({RAYS} rays, "
-          f"{int(v_b.sum())} hits, {steps[0]} traversal steps, winners "
-          f"equal to the march but at near ties, max |dt| {err:.3g}): "
-          f"{bvh_ms:.4f} ms ({bvh_ms / steps[0]:.4f} ms a step; first call "
-          f"{query_s:.4f} s); {ops.n} aten ops dispatched in the query, "
-          f"{ops.n / steps[0]:.2f} a step; the march's whole query "
-          f"{march_ms:.4f} ms [{card}]")
+    o_b, d_b, p_s, seg = bounce_and_shadow(
+        dev, scene, *traversal.traverse(nodes, o, d, T_MIN, intersect.BIG_T),
+        o, d)
+    scene2, cam2, bvh2 = card_builds[BIG_SCENE_LEVELS[0]]
+    o2, d2 = camera_wavefront(dev, cam2, RAYS, 0)
+    waves = [("camera", nodes, ct, o, d, T_MIN),
+             ("bounce", nodes, ct, o_b, d_b, T_MIN),
+             ("shadow", nodes, ct, p_s, seg, K_SHADOW_T_MIN),
+             (f"level-{BIG_SCENE_LEVELS[0]} camera",
+              traversal.pack_fat_nodes(scene2, bvh2),
+              build_cluster_tables(scene2, K=CLUSTER_K), o2, d2, T_MIN)]
+    traverse_err = 0.0
+    bvh_main = None
+    for name, nodes_w, ct_w, o_w, d_w, t_min in waves:
+        reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = traversal.traverse(nodes_w, o_w, d_w, t_min,
+                                     intersect.BIG_T)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = read_traversals()
+        if launches != 1 or read_counts() != (0, 0, 0):
+            fail(f"BVH {name} query: {launches} traversal launches and "
+                 f"{read_counts()} (march, sweep, window), expected 1 and "
+                 f"none")
+        (visits, want), counted_s = timed(lambda: twin_visits(
+            nodes_w, o_w, d_w, t_min))
+        for x, y in zip(got, want):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"BVH {name} query: the traversal kernel and its twin "
+                     f"are not bit-equal")
+        if not torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32)):
+            fail(f"BVH {name} query: t differs from the twin's in its bits")
+        both = got[2] & want[2]
+        if bool(both.any()):
+            traverse_err = max(traverse_err, float(
+                (got[1] - want[1])[both].abs().max()))
+        ms = cuda_ms(lambda: traversal.traverse(nodes_w, o_w, d_w, t_min,
+                                                intersect.BIG_T), torch)
+        march_ms = cuda_ms(lambda: cluster_sweep.cluster_march(
+            ct_w, o_w, d_w, t_min), torch)
+        ops = (OPS_TRAV_RAY * o_w.shape[0] + OPS_BOX_VISIT * visits["visits"]
+               + OPS_SPHERE_TEST * visits["spheres"]
+               + OPS_TRI_TEST * visits["triangles"])
+        b_ms, b_by = bound(nbytes(o_w, d_w, nodes_w.fdata, nodes_w.idata,
+                                  *got), ops)
+        print(f"BVH {name} wavefront ({o_w.shape[0]} rays, "
+              f"{nodes_w.fdata.shape[0]} rows, t_min {t_min:g}, "
+              f"{int(got[2].sum())} hits, bit-equal to the twin, one launch, "
+              f"no host sync): kernel {ms:.4f} ms, plain twin with its "
+              f"counters {counted_s * 1e3:.4f} ms ({visits['steps']} steps), "
+              f"the march's whole query {march_ms:.4f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by}, "
+              f"{visits['visits']} node visits, {visits['spheres']} sphere "
+              f"and {visits['triangles']} triangle tests, "
+              f"{ops / 1e9:.4f} GFLOP); longest ray {visits['longest']} "
+              f"steps, {ms * 1e3 / visits['longest']:.3f} us a step of it "
+              f"[{card}]")
+        if name == "camera":
+            _, plain_s = timed(lambda: traversal.traverse_reference(
+                nodes, o, d, T_MIN, intersect.BIG_T))
+            bvh_main = (ms, plain_s * 1e3, b_ms, b_by)
+            print(f"plain twin alone on the camera wavefront: "
+                  f"{plain_s * 1e3:.4f} ms (one call) [{card}]")
+            b_b = torch.where(got[2], got[0], -1)
+            err = compare_hits("BVH vs march (camera)", got[1].cpu().numpy(),
+                               b_b.cpu().numpy(), t_m.cpu().numpy(),
+                               b_m.cpu().numpy(),
+                               scene.prim_type.cpu().numpy())
+            print(f"BVH vs march, camera wavefront: winners equal but at "
+                  f"near ties, max |dt| {err:.3g}")
+            with op_counter() as ops_n:
+                traversal.traverse_reference(nodes, o, d, T_MIN,
+                                             intersect.BIG_T)
+            print(f"the twin dispatched {ops_n.n} aten ops on the camera "
+                  f"wavefront, {ops_n.n / visits['steps']:.2f} a step")
     prim_type_ct = ct.scene.prim_type.cpu().numpy()   # the march's order
-    del ct, o, d, idx_m, t_m, v_m, b_m, idx_b, t_b, v_b, b_b
+    del ct, waves, o, d, o_b, d_b, p_s, seg, o2, d2, idx_m, t_m, v_m, b_m
+    del got, want, scene2, cam2, bvh2, card_builds
 
-    # 8c. a "bvh"-route bunny through the CLI against the brute route
-    # (the same intersection arithmetic: bit-equal)
-    small_argv = ["--scene", "bunny", "--width", "160", "--height", "90",
-                  "--spp", "1", "--max-depth", "4", "--ray-chunk", "14400"]
-    imgs = {}
-    for accel in ("bvh", "brute"):
-        img_np, seconds, cfg, stats, counts = run_cli(
-            small_argv + ["--accel", accel],
-            os.path.join(out, f"chip_smoke_bunny_{accel}.png"))
-        imgs[accel] = img_np
-        mean = check_image(f"bunny ({accel})", img_np, (90, 160, 3), 0.3,
-                           0.95)
-        print(f"render bunny 160x90 1 spp depth 4, accel {accel}: "
-              f"{seconds:.4f} s wall, {stats[0]:.0f} closest-hit queries, "
-              f"image mean {mean:.5f} [{card}]")
-        if counts != (0, 0, 0):
-            fail(f"the {accel} bunny launched {counts} (march, sweep, "
-                 f"window) kernels")
-    if not np.array_equal(imgs["bvh"], imgs["brute"]):
-        fail(f"the bvh bunny image is not bit-equal to the brute image: "
-             f"max |diff| {np.abs(imgs['bvh'] - imgs['brute']).max():.3g}")
-    print("bunny bvh vs brute image: bit-equal")
+    # 8c. "bvh"-route renders through the CLI against the brute route (the
+    # same intersection arithmetic: bit-equal): the bunny, and cornell-full
+    # with NEE (the shadow query); one traversal launch a query
+    bvh_paths = {}
+    for what, argv, shape, lo in (
+            ("bunny", ["--scene", "bunny", "--width", "160", "--height",
+                       "90", "--spp", "1", "--max-depth", "4",
+                       "--ray-chunk", "14400"], (90, 160, 3), 0.3),
+            ("cornell-full", ["--preset", "cornell-full", "--scale", "0.25",
+                              "--ray-chunk", "4096"], (64, 64, 3), 0.05)):
+        imgs = {}
+        for accel in ("bvh", "brute"):
+            img_np, seconds, cfg, stats, counts = run_cli(
+                argv + ["--accel", accel],
+                os.path.join(out, f"chip_smoke_{what}_{accel}.png"))
+            launches = read_traversals()
+            imgs[accel] = img_np
+            mean = check_image(f"{what} ({accel})", img_np, shape, lo, 0.95)
+            queries = (stats[0] + stats[1]) / min(cfg.ray_chunk,
+                                                  cfg.num_pixels)
+            print(f"render {what} {cfg.width}x{cfg.height} {cfg.spp} spp "
+                  f"depth {cfg.max_depth}{', nee' if cfg.nee else ''}, accel "
+                  f"{accel}: {seconds:.4f} s wall, {stats[0]:.0f} closest-hit"
+                  f" and {stats[1]:.0f} shadow rays ({queries:g} queries), "
+                  f"{launches} traversal launches, image mean {mean:.5f} "
+                  f"[{card}]")
+            if counts != (0, 0, 0) or launches != (
+                    queries if accel == "bvh" else 0):
+                fail(f"the {accel} {what} launched {counts} (march, sweep, "
+                     f"window) and {launches} traversal kernels for "
+                     f"{queries:g} queries")
+            if what == "cornell-full" and not (cfg.nee and stats[1] > 0):
+                fail("the cornell-full render ran no shadow query")
+            if accel == "bvh":
+                bvh_paths[what] = launches
+        if not np.array_equal(imgs["bvh"], imgs["brute"]):
+            fail(f"the bvh {what} image is not bit-equal to the brute image: "
+                 f"max |diff| {np.abs(imgs['bvh'] - imgs['brute']).max():.3g}")
+        print(f"{what} bvh vs brute image: bit-equal")
+
+    # 8c'. the bench-shape bunny on the "bvh" route through the CLI,
+    # bit-equal to the "brute" route's image at the same shape (the same
+    # intersection arithmetic, as in 8c), and beside phase 4's march image
+    # and the march route's wall in this process; each traversal call one
+    # launch with no host sync inside. The march image is held only at
+    # mean |diff| <= 1e-3: the march takes t through the pair-scalar sweep,
+    # the direct formulas' near ties differ by up to ~3.5e-5 in t, and four
+    # bounces carry that past 1e-4 on about 2% of channels
+    real_traverse = traversal.traverse
+    calls = []
+
+    def no_sync_traverse(*args, **kw):
+        calls.append(args[1].shape[0])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_traverse(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    walls, bench_imgs = {}, {}
+    for accel in ("cluster", "brute", "bvh"):
+        with mock.patch.object(traversal, "traverse", no_sync_traverse):
+            img_np, walls[accel], cfg, stats, counts = run_cli(
+                bunny_argv + ["--accel", accel],
+                os.path.join(out, f"chip_smoke_bunny_bench_{accel}.png"))
+        launches = read_traversals()
+        bench_imgs[accel] = img_np
+        if accel != "bvh":
+            if (counts[0] > 0) != (accel == "cluster") or counts[1:] != \
+                    (0, 0) or launches:
+                fail(f"the {accel} bunny launched {counts} (march, sweep, "
+                     f"window) and {launches} traversal kernels")
+            continue
+        queries = stats[0] / RAYS
+        if counts != (0, 0, 0) or launches != queries or len(calls) != \
+                launches or set(calls) != {RAYS}:
+            fail(f"the bench-shape bvh bunny: {launches} traversal launches "
+                 f"for {queries:g} queries ({len(calls)} calls of "
+                 f"{sorted(set(calls))} rays), {counts} (march, sweep, "
+                 f"window)")
+        bvh_paths["bunny bench shape"] = launches
+    mean = check_image("bunny (bvh)", bench_imgs["bvh"], march_img.shape,
+                       0.3, 0.95)
+    gap = np.abs(bench_imgs["bvh"] - bench_imgs["brute"])
+    gap_m = np.abs(bench_imgs["bvh"] - march_img)
+    print(f"render bunny {cfg.width}x{cfg.height} {cfg.spp} spp depth "
+          f"{cfg.max_depth}, accel bvh, chunk {cfg.ray_chunk}: "
+          f"{walls['bvh']:.4f} s wall against the march route's "
+          f"{walls['cluster']:.4f} s in this process "
+          f"({walls['bvh'] / walls['cluster']:.3f}x; brute "
+          f"{walls['brute']:.4f} s), {launches} traversal launches for "
+          f"{queries:g} queries, none with a host sync; image mean "
+          f"{mean:.5f}; against the brute image max |diff| {gap.max():.3g} "
+          f"({'bit-equal' if not gap.any() else 'not bit-equal'}); "
+          f"against phase 4's march image "
+          f"{float((gap_m <= 1e-4).mean()):.5f} within 1e-4, mean |diff| "
+          f"{gap_m.mean():.3g} [{card}]")
+    if not np.array_equal(bench_imgs["bvh"], bench_imgs["brute"]):
+        fail("the bench-shape bvh image is not bit-equal to the brute image")
+    if gap_m.mean() > 1e-3:
+        fail("the bench-shape bvh bunny disagrees with the march image")
+    del bench_imgs, gap, gap_m
 
     # 8d. the sharded renderer on meshes of the one card, at the bench
     # shape; a rays-only mesh equals the single render with its plan's
@@ -1311,14 +1526,20 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
     # frames and a key, then the CLI's --interactive under a
     # pseudo-terminal (w, then ESC)
     scene_t, cam_t = get_world("test", device=dev)
-    sess = ViewerSession(scene_t, cam_t, cfg_b.replace(
-        width=64, height=36, max_depth=3, accel="bvh"), device=dev)
-    frames = [sess.step() for _ in range(3)]
-    moved = sess.handle_key("w", 0.1)
-    frames.append(sess.step())
+    cfg_v = cfg_b.replace(width=64, height=36, max_depth=3, accel="bvh")
+    reset_counts()
+    with recording_traversals() as viewer_traversals:
+        sess = ViewerSession(scene_t, cam_t, cfg_v, device=dev)
+        frames = [sess.step() for _ in range(3)]
+        moved = sess.handle_key("w", 0.1)
+        frames.append(sess.step())
+    bvh_paths["viewer session"] = read_traversals()
     if not (moved and sess.passes == 1 and all(
             np.isfinite(f).all() and f.shape == (36, 64, 3) for f in frames)):
         fail("the viewer session did not render, accumulate and restart")
+    hold_traversals("viewer session", viewer_traversals,
+                    bvh_paths["viewer session"],
+                    min(cfg_v.ray_chunk, cfg_v.num_pixels))
     master, slave = pty.openpty()
     env = dict(os.environ, PYTHONPATH=HERE)
     viewer = subprocess.Popen(
@@ -1378,7 +1599,7 @@ def bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
             and stats["mean_abs_cross"] <= 1.35 * stats["mean_abs_self"]
             + 5e-3 and stats["p99_cross"] <= 1.5 * stats["p99_self"] + 0.02):
         fail(f"the card render disagrees with the oracle: {stats}")
-    return sharded_marches, c_s[1]
+    return sharded_marches, c_s[1], (bvh_main, traverse_err, bvh_paths)
 
 
 def run_bench(argv):
@@ -1580,11 +1801,66 @@ def hold_draws(what, seen, launches, chunk=None, ms=(6,)):
           f"({', '.join(draw_text(sig) for sig in sorted(seen))})")
 
 
-def entry_points(dev, card, out, path_draws):
+@contextlib.contextmanager
+def recording_traversals():
+    """Inside the block, the traversal wrapper (``ops/traversal.traverse``)
+    records its arguments, rays copied, on its first and last call of each
+    signature (rays, t_min). Yields {signature: {"first": args, "last":
+    args}}."""
+    from pathtracer_tpu_torch.ops import traversal
+    real = traversal.traverse
+    seen = {}
+
+    def recording(nodes, o, d, t_min, t_max, max_steps=0):
+        args = (nodes, o.clone(), d.clone(), t_min, t_max, max_steps)
+        seen.setdefault((o.shape[0], float(t_min)),
+                        {"first": args})["last"] = args
+        return real(nodes, o, d, t_min, t_max, max_steps)
+    with mock.patch.object(traversal, "traverse", recording):
+        yield seen
+
+
+def hold_traversals(what, seen, launches, chunk):
+    """The traversal kernel bit-equal (winner, t bits, valid) to its twin
+    ``traverse_reference`` on each call :func:`recording_traversals` kept,
+    after a path that launched it ``launches`` times (which must be
+    positive); a call on ``chunk`` rays (the path's chunk) must be among
+    them, and some recorded call must hit."""
+    import torch
+    from pathtracer_tpu_torch.ops import traversal
+    if launches <= 0:
+        fail(f"{what}: the path launched no traversal kernel")
+    if not any(rays == chunk for rays, _ in seen):
+        fail(f"{what}: no traversal recorded at the path's chunk ({chunk} "
+             f"rays); recorded {sorted(seen)}")
+    n = hits = 0
+    for sig, calls in sorted(seen.items()):
+        for which, args in calls.items():
+            if which == "last" and args is calls["first"]:
+                continue
+            got = traversal.traverse(*args)
+            want = traversal.traverse_reference(*args)
+            if not (torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32))
+                    and torch.equal(got[2], want[2])):
+                fail(f"{what}: the {which} {sig[0]}-ray traversal at t_min "
+                     f"{sig[1]:g}: the kernel and its twin are not "
+                     f"bit-equal")
+            hits += int(got[2].sum())
+            n += 1
+    if not hits:
+        fail(f"{what}: no recorded traversal hit anything")
+    print(f"{what}: {launches} traversal launches; the kernel bit-equal to "
+          f"its twin on {n} recorded calls ({hits} hits; "
+          f"{', '.join(f'{r} rays at t_min {t:g}' for r, t in sorted(seen))})")
+
+
+def entry_points(dev, card, out, path_draws, bvh_paths):
     """Phase 9 (module docstring). Returns (the bench's march launches over
     its timed renders at its defaults, its dense sweep launches over the
     pallas runs of 9b); each step's draws launches go into
-    ``path_draws``."""
+    ``path_draws``, and the dry run's traversal launches (its BVH leg) into
+    ``bvh_paths``."""
     import numpy as np
     import torch
     from pathtracer_tpu_torch import bench_scaling
@@ -1607,6 +1883,25 @@ def entry_points(dev, card, out, path_draws):
             or rec["accel"] != "cluster" or path_draws["bench"] <= 0:
         fail(f"the bench at its defaults ran {rec['metric']} on "
              f"{rec['accel']} with {rec['launches']}")
+    # ... and on the "bvh" route: one traversal launch a closest-hit query
+    # of each timed render (``executed_queries`` counts the last render's
+    # rays; every render of the bunny runs all its queries)
+    rec, seconds = run_bench(["--accel", "bvh"])
+    check_bench(rec, card, "bench --accel bvh")
+    queries = rec["executed_queries"] / rec["config"]["ray_chunk"]
+    bvh_paths["bench --accel bvh"] = rec["launches"]["bvh_traverse"]
+    path_draws["bench --accel bvh"] = rec["launches"]["ray_uniforms"]
+    print(f"bench line: {json.dumps(rec)}")
+    print(f"bench {bench_text(rec)}; {queries:g} closest-hit queries a "
+          f"render; the command took {seconds:.1f} s")
+    if rec["accel"] != "bvh" or rec["launches"]["bvh_traverse"] != \
+            rec["config"]["iters"] * queries or rec["executed_queries"] != \
+            rec["nominal_queries"] or rec["shadow_queries"] \
+            or path_draws["bench --accel bvh"] <= 0 or any(
+                rec["launches"][k] for k in ("cluster_march", "dense_sweep",
+                                             "window_sweep")):
+        fail(f"the bench on bvh ran {rec['accel']} with {rec['launches']} "
+             f"for {rec['config']['iters']} renders of {queries:g} queries")
 
     # 9b. the small scenes on the dense sweep and the tensor route (the
     # auto choice below K_AUTO_ACCEL_PRIMS), in phase 4's chunks, which
@@ -1740,20 +2035,30 @@ def entry_points(dev, card, out, path_draws):
     reset_counts()
     with recording_work(cluster_sweep, "march", marched) as dry_marches, \
             recording_work(pallas_sweep, "sweep", swept_a_hit) as dry_sweeps, \
-            recording_draws() as dry_draws:
+            recording_draws() as dry_draws, \
+            recording_traversals() as dry_traversals:
         loss = dryrun_multichip(2)
     counts = read_counts()
     path_draws["dryrun_multichip(2)"] = read_draws()
+    bvh_paths["dryrun_multichip(2)"] = read_traversals()
     print(f"dryrun_multichip(2) on [cuda:0] * 2: loss {loss:.6f}, {counts} "
-          f"(march, sweep, window) launches")
-    if not np.isfinite(loss) or counts[0] <= 0 or counts[1] <= 0:
-        fail(f"dryrun_multichip(2): loss {loss}, {counts} launches")
+          f"(march, sweep, window) launches, "
+          f"{bvh_paths['dryrun_multichip(2)']} traversal launches (its BVH "
+          f"leg)")
+    if not np.isfinite(loss) or counts[0] <= 0 or counts[1] <= 0 \
+            or bvh_paths["dryrun_multichip(2)"] <= 0:
+        fail(f"dryrun_multichip(2): loss {loss}, {counts} launches, "
+             f"{bvh_paths['dryrun_multichip(2)']} traversal launches")
     hold_recorded("dryrun_multichip(2) march", dry_marches,
                   cluster_sweep.march, cluster_sweep.march_reference)
     hold_recorded("dryrun_multichip(2) sweep", dry_sweeps,
                   pallas_sweep.sweep, pallas_sweep.sweep_reference)
     hold_draws("dryrun_multichip(2)", dry_draws,
                path_draws["dryrun_multichip(2)"])
+    # the BVH leg's ray_chunk (entry.dryrun_multichip), which the 512-pixel
+    # image on a 1x2 mesh keeps
+    hold_traversals("dryrun_multichip(2) BVH leg", dry_traversals,
+                    bvh_paths["dryrun_multichip(2)"], 64)
     return bench_marches, bench_sweeps
 
 
@@ -2109,7 +2414,7 @@ def main() -> int:
 
     # 2. build, every source at once
     kernels = ("cluster_march", "dense_sweep", "window_sweep",
-               "ray_uniforms")
+               "ray_uniforms", "bvh_traverse")
     t0 = time.perf_counter()
     _cuda_build.build_all(kernels)
     for name in kernels:
@@ -2436,14 +2741,16 @@ def main() -> int:
     # 8. the BVH route, the sharded renderer and train step, the viewer
     # and the oracle
     t8 = time.perf_counter()
-    sharded_marches, sharded_sweeps = bvh_and_sharded(
-        dev, card, march_img, run_cli, bunny_argv, out, path_draws)
+    sharded_marches, sharded_sweeps, (bvh_main, bvh_err, bvh_paths) = \
+        bvh_and_sharded(dev, card, march_img, run_cli, bunny_argv, out,
+                        path_draws)
     print(f"phase 8 took {time.perf_counter() - t8:.1f} s")
 
     # 9. the entry points: the bench, the scaling bench and its proxy, the
     # inverse-rendering example, the compile-check entry
     t9 = time.perf_counter()
-    bench_marches, bench_sweeps = entry_points(dev, card, out, path_draws)
+    bench_marches, bench_sweeps = entry_points(dev, card, out, path_draws,
+                                               bvh_paths)
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
 
     # 10. the draws kernel on the paths: cornell with NEE and Russian
@@ -2487,6 +2794,13 @@ def main() -> int:
         "max_abs_err": draws_err,
         "ms": draws_main[0], "plain_ms": draws_main[1],
         "bound_ms": draws_main[2], "bound_by": draws_main[3],
+        "library_ms": None}, {
+        "name": "bvh_traverse", "route": "cuda",
+        "source": "pathtracer_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": None, "launches": bvh_paths["bunny bench shape"],
+        "path_launches": bvh_paths, "max_abs_err": bvh_err,
+        "ms": bvh_main[0], "plain_ms": bvh_main[1],
+        "bound_ms": bvh_main[2], "bound_by": bvh_main[3],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

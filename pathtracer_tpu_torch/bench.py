@@ -71,7 +71,8 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("cluster_march", "dense_sweep", "window_sweep", "ray_uniforms")
+KERNELS = ("cluster_march", "dense_sweep", "window_sweep", "ray_uniforms",
+           "bvh_traverse")
 # the correctness check's render: the bench's scene, accel and depth at
 # this size and spp, on the device and on the CPU twins
 CHECK_WIDTH, CHECK_HEIGHT, CHECK_SPP = 64, 36, 2
@@ -195,18 +196,22 @@ def device_stamp(on_card: bool) -> dict:
 
 def launch_counts() -> dict:
     """Each kernel wrapper's launches since its counter was last reset."""
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep, uniforms
+    from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
+                                          traversal, uniforms)
     return {"cluster_march": cluster_sweep.MARCH_LAUNCHES,
             "dense_sweep": pallas_sweep.SWEEP_LAUNCHES,
             "window_sweep": cluster_sweep.WINDOW_LAUNCHES,
-            "ray_uniforms": uniforms.UNIFORMS_LAUNCHES}
+            "ray_uniforms": uniforms.UNIFORMS_LAUNCHES,
+            "bvh_traverse": traversal.TRAVERSE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep, uniforms
+    from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
+                                          traversal, uniforms)
     cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
     pallas_sweep.SWEEP_LAUNCHES = 0
     uniforms.UNIFORMS_LAUNCHES = 0
+    traversal.TRAVERSE_LAUNCHES = 0
 
 
 def env_knobs() -> dict:

@@ -15,9 +15,9 @@ Closest-hit routes (``cfg.accel``, "auto" by scene size): "cluster" (the
 march kernel, or with ``PT_CLUSTER_STRATEGY=rounds`` the window kernel),
 "pallas" (the dense sweep kernel), "tensor" (dense float32 matrix products,
 the "auto" choice below K_AUTO_ACCEL_PRIMS prims), "bvh" (the LBVH and
-stackless traversal, a correctness cross-check in plain tensor ops) and
-"brute". Every route carries a shadow query for NEE. ``stratify`` jitters
-sample s inside stratum (s mod m^2) of an m x m sub-pixel grid, m the
+the stackless traversal kernel, a correctness cross-check) and "brute".
+Every route carries a shadow query for NEE. ``stratify`` jitters sample s
+inside stratum (s mod m^2) of an m x m sub-pixel grid, m the
 largest integer with m^2 dividing ``cfg.spp``; ``sampler="sobol"`` takes
 the pixel jitter from a per-pixel Owen-scrambled Sobol point instead (and
 overrides ``stratify``).

@@ -50,6 +50,19 @@ OPS_TRI_PAIR = 4 * 23 + 13 + 1
 # and the t tests only where those pass)
 OPS_SPHERE_BASE = 2 * 23 + 4
 OPS_TRI_BASE = 3 * 23 + 9
+# float32 operations of the BVH traversal kernel (csrc/bvh_traverse.cu):
+# per ray the three reciprocals of d; per node visit the slab test (6
+# differences, 6 products, 3 swap tests, 6 running-bound compares, the
+# final compare); per primitive tested (a leaf whose box is hit) the direct
+# sphere test (3 differences, 3 dot products of 5, r * r and its
+# difference, the discriminant's 3, its test, sqrt, 1 / a, the two roots'
+# 4, 4 range compares, the hit test) or Moller-Trumbore (2 cross products
+# of 9, 3 differences, 4 dot products of 5, 1 / det and its test, 3
+# products by it, b1 + b2, 9 compares), each with the t < t_best compare
+OPS_TRAV_RAY = 3
+OPS_BOX_VISIT = 6 + 6 + 3 + 6 + 1
+OPS_SPHERE_TEST = 3 + 3 * 5 + 2 + 3 + 1 + 1 + 1 + 4 + 4 + 1 + 1
+OPS_TRI_TEST = 2 * 9 + 3 + 4 * 5 + 2 + 3 + 1 + 9 + 1
 
 # the fields of card_stamp, as nvidia-smi names them
 STAMP_FIELDS = ("name", "power.limit", "clocks.sm", "temperature.gpu")

@@ -23,7 +23,8 @@ import torch
 from pathtracer_tpu_torch.config import K_SHADOW_T_MIN, RenderConfig
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core.camera import get_rays
-from pathtracer_tpu_torch.ops import cluster_sweep, pallas_sweep, uniforms
+from pathtracer_tpu_torch.ops import (cluster_sweep, intersect, pallas_sweep,
+                                      traversal, uniforms)
 from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
 from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, pack_sweep_tables,
@@ -682,6 +683,77 @@ def test_bvh_winners_equal_the_march(gpu):
     bvh = make_bvh_closest_hit(scene, build_lbvh(scene), T_MIN)
     idx_b, t_b, v_b = bvh(o, d)
     assert _agree_up_to_near_ties(idx_b, t_b, v_b, idx_m, t_m, v_m) > 20000
+
+
+def _bunny_nodes(gpu):
+    from pathtracer_tpu_torch.accel.lbvh import build_lbvh
+    scene, cam = get_world("bunny", device=gpu)
+    return scene, cam, traversal.pack_fat_nodes(scene, build_lbvh(scene))
+
+
+def _traverse_bit_equal(nodes, o, d, t_min, max_steps=0):
+    """The traversal kernel against its twin on the card: winner, t and
+    valid to the bit, the twin's dtypes, one launch counted (none for the
+    twin). Returns the kernel's valid flags as numpy."""
+    before = traversal.TRAVERSE_LAUNCHES
+    got = traversal.traverse(nodes, o, d, t_min, intersect.BIG_T, max_steps)
+    assert traversal.TRAVERSE_LAUNCHES == before + 1
+    want = traversal.traverse_reference(nodes, o, d, t_min, intersect.BIG_T,
+                                        max_steps)
+    assert traversal.TRAVERSE_LAUNCHES == before + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.device == y.device
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    np.testing.assert_array_equal(got[1].cpu().numpy().view(np.int32),
+                                  want[1].cpu().numpy().view(np.int32))
+    return got[2].cpu().numpy()
+
+
+def test_bvh_kernel_matches_twin_on_the_camera_wavefront(gpu):
+    """The bunny's 57,600-ray camera wavefront, the "bvh" route's query."""
+    _, cam, nodes = _bunny_nodes(gpu)
+    o, d = _wavefront("camera", cam, 57600, gpu)
+    assert _traverse_bit_equal(nodes, o, d, T_MIN).sum() > 20000
+
+
+def test_bvh_kernel_matches_twin_on_shadow_segments(gpu):
+    """The shadow query (t_min K_SHADOW_T_MIN) on unnormalised segments
+    from the camera hits to points above the scene."""
+    _, cam, nodes = _bunny_nodes(gpu)
+    o, d = _wavefront("camera", cam, 57600, gpu)
+    _, t, valid = traversal.traverse(nodes, o, d, T_MIN, intersect.BIG_T)
+    p = o + torch.where(valid, t, 1.0)[:, None] * d
+    rng = np.random.default_rng(12)
+    target = rng.uniform(-4, 4, (57600, 3)).astype(np.float32)
+    target[:, 1] = np.abs(target[:, 1]) + 3.0
+    seg = torch.from_numpy(target).to(gpu) - p
+    assert _traverse_bit_equal(nodes, p, seg, K_SHADOW_T_MIN).any()
+
+
+@pytest.mark.parametrize("max_steps", [1, 7, 64])
+def test_bvh_kernel_matches_twin_under_a_cap(gpu, max_steps):
+    """A step cap stops every ray alike in kernel and twin, and a ragged
+    ray count ends in a partial block."""
+    _, cam, nodes = _bunny_nodes(gpu)
+    o, d = _wavefront("bounce", cam, 1000, gpu)
+    valid = _traverse_bit_equal(nodes, o, d, T_MIN, max_steps)
+    if max_steps == 1:
+        assert not valid.any()
+
+
+def test_bvh_wrapper_rejects_bad_inputs(gpu):
+    _, cam, nodes = _bunny_nodes(gpu)
+    o, d = _wavefront("camera", cam, 256, gpu)
+    with pytest.raises(TypeError):
+        traversal.traverse(nodes, o.double(), d, T_MIN, intersect.BIG_T)
+    with pytest.raises(ValueError):
+        traversal.traverse(nodes, o[:, :2], d[:, :2], T_MIN, intersect.BIG_T)
+    with pytest.raises(ValueError):
+        traversal.traverse(nodes, o.requires_grad_(), d, T_MIN,
+                           intersect.BIG_T)
+    bad = nodes._replace(idata=nodes.idata.long())
+    with pytest.raises(TypeError):
+        traversal.traverse(bad, o.detach(), d, T_MIN, intersect.BIG_T)
 
 
 @pytest.mark.parametrize("spp_axis", [1, 2])
