@@ -468,7 +468,8 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
     (tuple of (R,) tensors, needs R % ray_tile == 0): the caller's per-ray
     state rides the binning sort and the result stays in sorted order;
     returns ``(idx, t, valid, o_s, d_s, active_s, extras_s, pair_tests)``,
-    with ``pair_tests`` the executed (ray, prim-slot) tests. ``t_max``:
+    with ``pair_tests`` the executed (ray, prim-slot) tests, a 0-d int64
+    tensor on the rays' device (counting waits for nothing). ``t_max``:
     hits at or beyond it are rejected and clusters entered beyond it are
     not marched. ``sort_rays`` False skips the binning sort (same result,
     less locality). ``cull2`` and ``sup``: the cull plan of
@@ -478,7 +479,7 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
                      extras=extras, t_max=t_max, sort_rays=sort_rays,
                      cull2=cull2, sup=sup)
     t_best, best, slots = march(*q["args"])
-    pair_tests = float(slots.sum().item()) * ct.K * ray_tile
+    pair_tests = slots.sum() * (ct.K * ray_tile)
 
     # merge the residual (a cluster hit must beat it strictly)
     use_k = t_best < q["t_res"]

@@ -17,6 +17,11 @@ restores pixel order. Otherwise each bounce queries in caller order.
 Random draws are keyed by ray id, so they do not depend on lane order;
 they go through the draws kernel's wrapper (``ops/uniforms``).
 
+Each trip of the loop is a ``pt.bounce`` span, each closest-hit and
+shadow query a ``pt.query`` and the loop's test a ``pt.wait``
+(``utils/metrics.span``, recorded only while a profiler records). The
+executed-query counts that depend on the data stay on the device.
+
 With ``nee`` (scenes with emissive prims) every diffuse or fuzzy-metal hit
 also samples one light point and casts a shadow ray (``render/lights``);
 light samples and BSDF-sampled emissive hits are weighted by the one-sample
@@ -47,6 +52,7 @@ from pathtracer_tpu_torch.ops import intersect, uniforms
 from pathtracer_tpu_torch.render import lights
 from pathtracer_tpu_torch.scene import materials
 from pathtracer_tpu_torch.scene.scene import Scene
+from pathtracer_tpu_torch.utils import metrics
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
@@ -76,12 +82,23 @@ def make_brute_closest_hit(scene: Scene, t_min: float):
     return closest
 
 
+def _any_alive(alive) -> bool:
+    """The bounce loop's test: whether a lane is alive (a host wait)."""
+    with metrics.span("pt.wait", "alive.any"):
+        return bool(alive.any())
+
+
 def trace(scene: Scene, origin, direction, key, max_depth: int,
           closest_hit_fn, t_min: float = 1e-3, sky: bool = True,
           terminate_black: bool = False, nee: bool = False, rr: bool = False,
           rr_depth: int = 3, differentiable: bool = False):
-    """Trace a wavefront of rays; returns (radiance (N, 3), (closest-hit
-    queries, shadow queries, march pair tests)) executed.
+    """Trace a wavefront of rays; returns (radiance (N, 3), (counts,
+    device_counts)): the executed (closest-hit queries, shadow queries,
+    march pair tests) are ``counts`` (floats, what the host knows) plus
+    the ``device_counts`` entries (slot, 0-d int64 tensor on the rays'
+    device) of that slot, those that depend on the data, left on the
+    device so that counting waits for nothing
+    (``render/renderer.read_counts``).
 
     ``key`` is a threefry key (``core/random``); ``closest_hit_fn(o, d) ->
     (prim_idx, t, valid)`` over ``scene``'s rows, optionally with
@@ -113,110 +130,118 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     # solid-angle pdf of the bounce that chose the current direction
     prev_pdf = torch.zeros(n_rays, dtype=torch.float32, device=dev)
     rid = torch.arange(n_rays, dtype=torch.int32, device=dev)
-    n_queries = n_shadow = n_pairs = 0.0
+    counts = [0.0, 0.0, 0.0]
+    device_counts = []
 
     depth = 0
-    while depth < max_depth and bool(alive.any()):
-        bkey = prng.fold_in(key, depth)
-        n_queries += (float(alive.sum()) if (handles_dead or sorted_mode)
-                      else float(n_rays))
-        if sorted_mode:
-            # ray id and flags share one int32 payload of the sort
-            flags = (rid | (absorbed.to(torch.int32) << _RID_BITS)
-                     | (spec_prev.to(torch.int32) << (_RID_BITS + 1)))
-            extras = (atten[:, 0], atten[:, 1], atten[:, 2], flags)
-            if carry_emit:
-                extras += tuple(emitted_acc.unbind(1))
+    while depth < max_depth and _any_alive(alive):
+        with metrics.span("pt.bounce", depth):
+            bkey = prng.fold_in(key, depth)
+            if handles_dead or sorted_mode:
+                device_counts.append((0, alive.sum()))
+            else:
+                counts[0] += n_rays
+            if sorted_mode:
+                # ray id and flags share one int32 payload of the sort
+                flags = (rid | (absorbed.to(torch.int32) << _RID_BITS)
+                         | (spec_prev.to(torch.int32) << (_RID_BITS + 1)))
+                extras = (atten[:, 0], atten[:, 1], atten[:, 2], flags)
+                if carry_emit:
+                    extras += tuple(emitted_acc.unbind(1))
+                if use_nee:
+                    extras += (prev_pdf,)
+                with metrics.span("pt.query", "closest"):
+                    idx, _, hit_valid, o, d, alive, ex, pairs = query_sorted(
+                        o.detach(), d.detach(), alive, extras)
+                device_counts.append((2, pairs))
+                atten = torch.stack(ex[0:3], dim=1)
+                flags = ex[3]
+                rid = flags & ((1 << _RID_BITS) - 1)
+                absorbed = ((flags >> _RID_BITS) & 1) != 0
+                spec_prev = ((flags >> (_RID_BITS + 1)) & 1) != 0
+                if carry_emit:
+                    emitted_acc = torch.stack(ex[4:7], dim=1)
+                if use_nee:
+                    prev_pdf = ex[-1]
+            else:
+                d_query = torch.where(alive[:, None], d, 0.0) if handles_dead \
+                    else d
+                with metrics.span("pt.query", "closest"):
+                    idx, t_hit, hit_valid = closest_hit_fn(o.detach(),
+                                                           d_query.detach())
+                if t_hit.requires_grad:
+                    raise RuntimeError(
+                        "the closest-hit query carries autograd history: "
+                        "build its tables from a detached scene (render/"
+                        "renderer.make_query)")
+            u_scatter = uniforms.uniform_by_ray(bkey, rid, 6)
+            rec = intersect.hit_records_from_prims(
+                scene, idx, o, d, t_min, intersect.BIG_T, hit_valid,
+                packed=packed)
+            sc = materials.scatter(scene, rec, d, u_scatter)
+
+            active = alive & hit_valid
+            hit_emitter = active & sc.is_emissive
             if use_nee:
-                extras += (prev_pdf,)
-            idx, _, hit_valid, o, d, alive, ex, pairs = query_sorted(
-                o.detach(), d.detach(), alive, extras)
-            n_pairs += pairs
-            atten = torch.stack(ex[0:3], dim=1)
-            flags = ex[3]
-            rid = flags & ((1 << _RID_BITS) - 1)
-            absorbed = ((flags >> _RID_BITS) & 1) != 0
-            spec_prev = ((flags >> (_RID_BITS + 1)) & 1) != 0
-            if carry_emit:
-                emitted_acc = torch.stack(ex[4:7], dim=1)
+                w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d, prev_pdf)
+                emit_w = torch.where(spec_prev, 1.0, w_bsdf)
+                emitted = atten * sc.emitted * emit_w[:, None]
+            else:
+                emitted = atten * sc.emitted
+            emitted_acc = emitted_acc + torch.where(hit_emitter[:, None],
+                                                    emitted, 0.0)
+            newly_absorbed = active & ~sc.is_emissive & ~sc.ok
+            absorbed = absorbed | newly_absorbed | hit_emitter
+            step = active & sc.ok & ~sc.is_emissive
+            if rr and depth >= rr_depth:
+                # decided for the continuation; the NEE bookkeeping below still
+                # sees the bounce's own step
+                u_rr = uniforms.uniform_by_ray(prng.fold_in(bkey, 2), rid,
+                                               1)[:, 0]
+                killed = step & (u_rr >= K_RR_CONTINUE)
+                rr_scale = torch.where(step & ~killed, K_RR_INV_CONTINUE, 1.0)
+            else:
+                killed = rr_scale = None
+
             if use_nee:
-                prev_pdf = ex[-1]
-        else:
-            d_query = torch.where(alive[:, None], d, 0.0) if handles_dead \
-                else d
-            idx, t_hit, hit_valid = closest_hit_fn(o.detach(),
-                                                   d_query.detach())
-            if t_hit.requires_grad:
-                raise RuntimeError(
-                    "the closest-hit query carries autograd history: build "
-                    "its tables from a detached scene (render/renderer."
-                    "make_query)")
-        u_scatter = uniforms.uniform_by_ray(bkey, rid, 6)
-        rec = intersect.hit_records_from_prims(
-            scene, idx, o, d, t_min, intersect.BIG_T, hit_valid,
-            packed=packed)
-        sc = materials.scatter(scene, rec, d, u_scatter)
+                u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
+                # every diffuse or glossy hit takes a light sample, whether or
+                # not its own BSDF sample survives (sc.ok)
+                take_direct = (active & ~sc.is_emissive
+                               & (sc.is_diffuse | sc.is_glossy))
+                if handles_dead:
+                    device_counts.append((1, take_direct.sum()))
+                else:
+                    counts[1] += n_rays
+                direct, _ = lights.direct_lighting(
+                    scene, rec.p, rec.normal, sc.attenuation, closest_hit_fn,
+                    u_nee, (sc.is_glossy, sc.glossy_r, sc.fuzz), eps=t_min,
+                    active=take_direct if handles_dead else None)
+                emitted_acc = emitted_acc + torch.where(
+                    take_direct[:, None], atten * direct, 0.0)
+                # fuzzy metal has a finite lobe and weighs emissive hits like
+                # diffuse; only delta lobes keep the full emissive weight
+                spec_prev = torch.where(step, sc.is_specular & ~sc.is_glossy,
+                                        spec_prev)
+                w_new = vec.safe_normalize(sc.direction)
+                new_cos = torch.clamp(vec.dot(rec.normal, w_new), min=0.0)
+                p_new = torch.where(sc.is_glossy,
+                                    lights.metal_lobe_pdf(w_new, sc.glossy_r,
+                                                          sc.fuzz),
+                                    new_cos * vec.PI_INV)
+                prev_pdf = torch.where(step & take_direct, p_new, prev_pdf)
 
-        active = alive & hit_valid
-        hit_emitter = active & sc.is_emissive
-        if use_nee:
-            w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d, prev_pdf)
-            emit_w = torch.where(spec_prev, 1.0, w_bsdf)
-            emitted = atten * sc.emitted * emit_w[:, None]
-        else:
-            emitted = atten * sc.emitted
-        emitted_acc = emitted_acc + torch.where(hit_emitter[:, None],
-                                                emitted, 0.0)
-        newly_absorbed = active & ~sc.is_emissive & ~sc.ok
-        absorbed = absorbed | newly_absorbed | hit_emitter
-        step = active & sc.ok & ~sc.is_emissive
-        if rr and depth >= rr_depth:
-            # decided for the continuation; the NEE bookkeeping below still
-            # sees the bounce's own step
-            u_rr = uniforms.uniform_by_ray(prng.fold_in(bkey, 2), rid,
-                                           1)[:, 0]
-            killed = step & (u_rr >= K_RR_CONTINUE)
-            rr_scale = torch.where(step & ~killed, K_RR_INV_CONTINUE, 1.0)
-        else:
-            killed = rr_scale = None
-
-        if use_nee:
-            u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
-            # every diffuse or glossy hit takes a light sample, whether or
-            # not its own BSDF sample survives (sc.ok)
-            take_direct = (active & ~sc.is_emissive
-                           & (sc.is_diffuse | sc.is_glossy))
-            n_shadow += (float(take_direct.sum()) if handles_dead
-                         else float(n_rays))
-            direct, _ = lights.direct_lighting(
-                scene, rec.p, rec.normal, sc.attenuation, closest_hit_fn,
-                u_nee, (sc.is_glossy, sc.glossy_r, sc.fuzz), eps=t_min,
-                active=take_direct if handles_dead else None)
-            emitted_acc = emitted_acc + torch.where(
-                take_direct[:, None], atten * direct, 0.0)
-            # fuzzy metal has a finite lobe and weighs emissive hits like
-            # diffuse; only delta lobes keep the full emissive weight
-            spec_prev = torch.where(step, sc.is_specular & ~sc.is_glossy,
-                                    spec_prev)
-            w_new = vec.safe_normalize(sc.direction)
-            new_cos = torch.clamp(vec.dot(rec.normal, w_new), min=0.0)
-            p_new = torch.where(sc.is_glossy,
-                                lights.metal_lobe_pdf(w_new, sc.glossy_r,
-                                                      sc.fuzz),
-                                new_cos * vec.PI_INV)
-            prev_pdf = torch.where(step & take_direct, p_new, prev_pdf)
-
-        bounce_atten = atten * sc.attenuation
-        if killed is not None:
-            step = step & ~killed
-            absorbed = absorbed | killed
-            bounce_atten = bounce_atten * rr_scale[:, None]
-        o = torch.where(step[:, None], rec.p, o)
-        d = torch.where(step[:, None], sc.direction, d)
-        atten = torch.where(step[:, None], bounce_atten, atten)
-        # a miss leaves the loop and keeps its last direction for the sky
-        alive = alive & hit_valid & step
-        depth += 1
+            bounce_atten = atten * sc.attenuation
+            if killed is not None:
+                step = step & ~killed
+                absorbed = absorbed | killed
+                bounce_atten = bounce_atten * rr_scale[:, None]
+            o = torch.where(step[:, None], rec.p, o)
+            d = torch.where(step[:, None], sc.direction, d)
+            atten = torch.where(step[:, None], bounce_atten, atten)
+            # a miss leaves the loop and keeps its last direction for the sky
+            alive = alive & hit_valid & step
+            depth += 1
 
     if sky:
         background = sky_color(d)
@@ -232,4 +257,4 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
         # back to pixel order by ray id
         radiance = torch.empty_like(radiance).index_put_((rid.long(),),
                                                          radiance)
-    return radiance, (n_queries, n_shadow, n_pairs)
+    return radiance, (tuple(counts), device_counts)

@@ -12,6 +12,7 @@ import torch
 
 from pathtracer_tpu_torch.core import sampling, vec
 from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE, Scene
+from pathtracer_tpu_torch.utils import metrics
 
 FOUR_PI = 4.0 * vec.PI
 
@@ -97,8 +98,9 @@ def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
     cos_l = torch.abs(vec.dot(n_l, seg)) * inv_dist  # double-sided emitter
 
     seg_q = seg if active is None else torch.where(active[:, None], seg, 0.0)
-    _, t_sh, sh_valid = closest_hit_fn.query_shadow(origin.detach(),
-                                                    seg_q.detach(), active)
+    with metrics.span("pt.query", "shadow"):
+        _, t_sh, sh_valid = closest_hit_fn.query_shadow(
+            origin.detach(), seg_q.detach(), active)
     unoccluded = (~sh_valid) | (t_sh >= 1.0 - eps)
 
     is_glossy, r_unit, fuzz = glossy

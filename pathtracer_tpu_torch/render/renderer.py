@@ -52,6 +52,7 @@ from pathtracer_tpu_torch.ops.traversal import (make_bvh_closest_hit,
                                               pack_fat_nodes)
 from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.scene.scene import Scene
+from pathtracer_tpu_torch.utils import metrics
 
 # Cluster size (``PT_CLUSTER_K`` overrides). The reference picks 64 unless
 # its tables would overflow TPU VMEM, a limit the port does not have. On
@@ -166,7 +167,9 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
                sample_offset: int = 0, differentiable: bool = False):
     """Radiance SUM (P, 3) over ``spp`` samples for a flat pixel wavefront
     (P a multiple of the chunk), not averaged or gamma'd, and the executed
-    (closest-hit queries, shadow queries, march pair tests).
+    (closest-hit queries, shadow queries, march pair tests), floats; the
+    counts that depend on the data stay on the device until the end,
+    where one wait reads them all (:func:`read_counts`).
 
     ``query`` is :func:`make_query` of ``scene`` (built here when None);
     shading uses its scene. ``sample_offset`` is the global index of the
@@ -193,11 +196,13 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
     use_sobol = cfg.sampler == "sobol"
     # each chunk's key: its first pixel's global index, in float32 as the
     # reference computes it (a chunk of padding alone keys 0)
-    pix0 = (rows[::chunk] * cfg.width + cols[::chunk]).to(
-        torch.int32).tolist()
+    pix0 = (rows[::chunk] * cfg.width + cols[::chunk]).to(torch.int32)
+    with metrics.span("pt.wait", "chunk keys"):
+        pix0 = pix0.tolist()
 
     acc = torch.zeros((n_padded, 3), dtype=torch.float32, device=dev)
-    n_queries = n_shadow = n_pairs = 0.0
+    counts = (0.0, 0.0, 0.0)
+    device_counts = []
     for s in range(sample_offset, sample_offset + spp):
         skey = prng.fold_in(base_key, s)
         stratum = s % (m_strat * m_strat)
@@ -224,16 +229,29 @@ def render_sum(scene: Scene, cam: camera_mod.Camera, base_key, rows, cols,
             # shutter time is unused: no ported scene moves
             o, d, _ = camera_mod.get_rays(cam, u, v, u_disk[0], u_disk[1],
                                           u_time)
-            radiance, (nq, nsh, npairs) = integrator.trace(
+            radiance, (chunk_counts, chunk_device_counts) = integrator.trace(
                 query.scene, o, d, tkey, cfg.max_depth, query.closest,
                 t_min=cfg.t_min, sky=cfg.sky,
                 terminate_black=cfg.terminate_black, nee=cfg.nee, rr=cfg.rr,
                 rr_depth=cfg.rr_depth, differentiable=differentiable)
             acc[sl] += radiance
-            n_queries += nq
-            n_shadow += nsh
-            n_pairs += npairs
-    return acc, (n_queries, n_shadow, n_pairs)
+            counts = tuple(a + b for a, b in zip(counts, chunk_counts))
+            device_counts += chunk_device_counts
+    return acc, read_counts(counts, device_counts)
+
+
+def read_counts(counts, device_counts):
+    """``counts`` (floats) plus each ``device_counts`` entry (slot, 0-d
+    integer tensor) added into its slot, read from the device in one wait.
+    Every count is an integer below 2^53, so the floats are exact."""
+    if not device_counts:
+        return counts
+    with metrics.span("pt.wait", "counters"):
+        values = torch.stack([c for _, c in device_counts]).tolist()
+    out = list(counts)
+    for (slot, _), v in zip(device_counts, values):
+        out[slot] += v
+    return tuple(out)
 
 
 def finish_image(acc, cfg: RenderConfig) -> torch.Tensor:
@@ -307,9 +325,11 @@ class Renderer:
         stats = (0.0, 0.0, 0.0)
         while s < cfg.spp:
             n = min(spp_per_pass, cfg.spp - s)
-            part, part_stats = render_sum(scene, cam, base_key, rows, cols,
-                                          cfg, n, query, sample_offset=s)
-            acc = acc + part
+            with metrics.span("pt.pass", (s, n)):
+                part, part_stats = render_sum(scene, cam, base_key, rows,
+                                              cols, cfg, n, query,
+                                              sample_offset=s)
+                acc = acc + part
             stats = tuple(a + b for a, b in zip(stats, part_stats))
             s += n
             if on_pass is not None:

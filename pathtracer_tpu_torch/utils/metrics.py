@@ -1,11 +1,16 @@
 """Timing and throughput instrumentation (``utils/metrics.py``).
 
-- :class:`PhaseTimer`: named wall-clock phases (scene build, table build,
-  render, readback) with a report table;
+- :func:`span`: the program's spans, recorded on the profiler's clock
+  into :data:`SPANS` while a ``torch.profiler`` records, and nothing
+  otherwise: ``pt.pass`` (a pass of ``Renderer.render_passes``),
+  ``pt.bounce`` (a trip of the integrator's bounce loop), ``pt.query``
+  (a closest-hit or shadow query, at its call site) and ``pt.wait`` (a
+  host read of a device value on the render path);
 - :func:`mrays_per_s`: the nominal throughput, pixels x spp x depth
   closest-hit queries per wall-second;
 - :func:`trace_context`: a ``torch.profiler`` scope that writes a Chrome
-  trace (the reference's is a ``jax.profiler`` trace);
+  trace (the reference's is a ``jax.profiler`` trace) carrying the
+  program's spans;
 - :func:`card_line` and :func:`card_stamp`: the card's name, power limit,
   SM clock and temperature from ``nvidia-smi``, stamped beside every
   number measured on it;
@@ -17,13 +22,23 @@ Nothing here imports torch at module level.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
 import subprocess
 import time
-from typing import Dict, Iterator, Optional
+from typing import Iterator, Optional
 
 TRACE_FILE = "trace.json"
+
+# The spans recorded while a profiler records, in the order they close (a
+# parent after its children), as (start_ns, end_ns, name, args) on the
+# profiler's clock (Unix time in ns, as time.time_ns gives it). Bounded:
+# the oldest fall out.
+SPANS: collections.deque = collections.deque(maxlen=1 << 18)
+# set while trace_context records: the spans then also enter the profile
+_annotate = False
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit): HBM
 # bytes/s and float32 FLOP/s outside the tensor cores
@@ -96,38 +111,6 @@ def card_stamp() -> dict:
     return dict(zip(keys, values), count=torch.cuda.device_count())
 
 
-class PhaseTimer:
-    """Accumulating named wall-clock phases.
-
-    >>> t = PhaseTimer()
-    >>> with t.phase("render"): ...
-    >>> t.report()
-    """
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str) -> Iterator[None]:
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - start
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = ["phase                 total_s   calls    mean_s"]
-        for name, total in sorted(self.totals.items(),
-                                  key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:<20} {total:>8.4f} {n:>7} "
-                         f"{total / n:>9.5f}")
-        return "\n".join(lines)
-
-
 def mrays_per_s(num_pixels: int, spp: int, max_depth: int,
                 seconds: float) -> float:
     """Closest-hit queries per wall-second, in millions, of the nominal
@@ -139,16 +122,72 @@ def mrays_per_s(num_pixels: int, spp: int, max_depth: int,
     return num_pixels * spp * max_depth / seconds / 1e6
 
 
+@functools.lru_cache(maxsize=None)
+def _autograd_profiler():
+    from torch.autograd import profiler
+    return profiler
+
+
+class _Span:
+    __slots__ = ("name", "args", "start", "annotation")
+
+    def __init__(self, name: str, args):
+        self.name, self.args = name, args
+        self.annotation = None
+
+    def __enter__(self):
+        if _annotate:
+            self.annotation = _autograd_profiler().record_function(
+                self.name, None if self.args is None else str(self.args))
+            self.annotation.__enter__()
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        SPANS.append((self.start, end, self.name, self.args))
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args=None):
+    """A span of the program named ``name`` (``args``: any value, the
+    pass's samples, a bounce's depth, a query's kind, a wait's site),
+    recorded into :data:`SPANS` while a ``torch.profiler`` records, and
+    under :func:`trace_context` also into its trace as a
+    ``record_function`` range. With no profiler recording it is one flag
+    check and a shared null context.
+
+    Spans nest on the host thread: ``pt.pass`` holds the ``pt.bounce``
+    trips of its chunks, a bounce its ``pt.query`` calls; ``pt.wait``
+    sits where the host waits (the bounce loop's test sits between
+    bounces). Their times are on the profiler's clock, the one its device
+    intervals are on, so an idle stretch of the device falls inside the
+    span the host was in. Outside :func:`trace_context` they stay out of
+    the profile: the profiler mirrors a range onto the device's timeline
+    around the work launched in it, where a reader of device intervals
+    would take it for work."""
+    if not _autograd_profiler()._is_profiler_enabled:
+        return _OFF
+    return _Span(name, args)
+
+
 @contextlib.contextmanager
 def trace_context(log_dir: Optional[str]) -> Iterator[None]:
     """A ``torch.profiler`` scope (host activity, and the card's where
     there is one) when ``log_dir`` is set, writing the Chrome trace
-    ``log_dir/trace.json`` on exit; a no-op otherwise. Synchronise inside
-    the scope, so the card's work falls in it:
+    ``log_dir/trace.json`` on exit; a no-op otherwise. The trace carries
+    the program's spans (:func:`span`: ``pt.pass``, ``pt.bounce``,
+    ``pt.query``, ``pt.wait``) as ranges around the work they hold.
+    Synchronise inside the scope, so the card's work falls in it:
 
         with trace_context("out/trace"):
             img = render(scene, cam).cpu()
     """
+    global _annotate
     if not log_dir:
         yield
         return
@@ -159,5 +198,9 @@ def trace_context(log_dir: Optional[str]) -> Iterator[None]:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
+        _annotate = True
+        try:
+            yield
+        finally:
+            _annotate = False
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

@@ -159,16 +159,7 @@ def test_fit_state_roundtrip(tmp_path, backend):
         np.testing.assert_array_equal(j_loaded["albedo"], loaded["albedo"])
 
 
-def test_phase_timer_and_mrays_match_reference():
-    for mod in (metrics, jmetrics):
-        t = mod.PhaseTimer()
-        for name in ("a", "a", "b"):
-            with t.phase(name):
-                pass
-        assert t.counts == {"a": 2, "b": 1}
-        lines = t.report().splitlines()
-        assert lines[0] == "phase                 total_s   calls    mean_s"
-        assert len(lines) == 3 and "a" in t.report()
+def test_mrays_per_s_matches_reference():
     for args in ((1000, 10, 5, 0.05), (800 * 450, 100, 50, 3.7),
                  (1, 1, 1, 0.0)):
         assert metrics.mrays_per_s(*args) == jmetrics.mrays_per_s(*args)

@@ -69,6 +69,9 @@ NOT_PORTED = {
     "ops/tensor_sweep.py::sweep_mode": _PRECISION,
     "scene/bunny.py::REFERENCE_OBJ": _ABSENT,
     "scene/cornell.py::CORNELL_DIR": _ABSENT,
+    "utils/metrics.py::PhaseTimer":
+        "`utils/metrics.PhaseTimer`: an unsynchronised phase timer; the "
+        "port's spans replace it",
 }
 
 # slices that must be ported under their own names

@@ -1,0 +1,186 @@
+"""The port's spans and query counters (``utils/metrics.span``,
+``render/integrator``, ``render/renderer``), on the CPU:
+
+- under ``torch.profiler`` a render keeps ``pt.pass`` ⊃ ``pt.bounce`` ⊃
+  ``pt.query`` / ``pt.wait`` nested on the host thread, one closest-hit
+  query a bounce trip, and no span enters the profile itself (so a reader
+  of the profile's events sees the work alone);
+- with no profiler recording, a render enters ``record_function`` zero
+  times and keeps nothing;
+- ``trace_context``'s Chrome trace carries the spans;
+- the renderer's stats and image bits are the ones recorded before the
+  counters moved to the device, on the sorted march, the tensor route
+  and the march's shadow queries, and the march's pair tests are its
+  slots times K times the ray tile;
+- a traced run of each benchmark cell on the CPU reads the four span
+  metrics.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import math
+import os
+
+import pytest
+import torch
+
+from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.ops import cluster_sweep
+from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+from pathtracer_tpu_torch.render.renderer import make_renderer
+from pathtracer_tpu_torch.scene.worlds import get_world
+from pathtracer_tpu_torch.utils import metrics
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NAMES = ("pt.pass", "pt.bounce", "pt.query", "pt.wait")
+
+# 2 samples in 1-spp passes of two 256-ray chunks; recorded before the
+# counters moved to the device: the executed (queries, shadow queries,
+# pair tests) and the sha256 of the image's float32 bytes at seed 5
+CASES = {
+    "bunny": (dict(width=32, height=16, spp=2, max_depth=4, ray_chunk=256,
+                   accel="auto", scene="bunny"),
+              (2147.0, 0.0, 3661824.0)),
+    "triangle": (dict(width=32, height=16, spp=2, max_depth=6,
+                      ray_chunk=256, accel="auto", scene="triangle"),
+                 (6144.0, 0.0, 0.0)),
+    "cornell": (dict(width=32, height=16, spp=2, max_depth=3, ray_chunk=256,
+                     accel="cluster", sky=False, nee=True, scene="cornell"),
+                (2614.0, 1901.0, 196608.0)),
+}
+IMAGE_SHA256 = {
+    "bunny":
+        "7076e9c67800b5ce5b242b82bf65fe87bcb326b8f8ceab324152e135bed73f8e",
+    "triangle":
+        "23f34c95ae598ceea69041858c48c65b6d3f84ba169fd4ad8357ee590a544e47",
+    "cornell":
+        "adad3f65b7d87d0df96ae2175110b103d7aa1a5b128a58abbc3ba8ac460b524a",
+}
+
+
+def render(case):
+    kw = CASES[case][0]
+    scene, cam = get_world(kw["scene"], device="cpu")
+    renderer = make_renderer(RenderConfig(**kw), "cpu", with_stats=True)
+    return renderer.render_passes(scene, cam, 1, seed=5)
+
+
+def kept_by(fn):
+    """(result of ``fn()``, the spans it kept)."""
+    before = len(metrics.SPANS)
+    result = fn()
+    return result, list(metrics.SPANS)[before:]
+
+
+def inside(child, parents):
+    return any(p[0] <= child[0] and child[1] <= p[1] for p in parents)
+
+
+@pytest.fixture(autouse=True)
+def fresh_spans():
+    metrics.SPANS.clear()
+    yield
+    metrics.SPANS.clear()
+
+
+@pytest.mark.parametrize("case", ["bunny", "triangle"])
+def test_spans_nest_under_a_profiler(case):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        (_, stats), kept = kept_by(lambda: render(case))
+    by = {n: [x for x in kept if x[2] == n] for n in NAMES}
+    assert set(x[2] for x in kept) == set(NAMES)
+    assert [x[3] for x in by["pt.pass"]] == [(0, 1), (1, 1)]
+    assert all(inside(b, by["pt.pass"]) for b in by["pt.bounce"])
+    assert all(inside(q, by["pt.bounce"]) for q in by["pt.query"])
+    assert all(inside(w, by["pt.pass"]) for w in by["pt.wait"])
+    closest = [q for q in by["pt.query"] if q[3] == "closest"]
+    assert len(closest) == len(by["pt.bounce"])
+    assert {b[3] for b in by["pt.bounce"]} <= set(
+        range(CASES[case][0]["max_depth"]))
+    assert all(s <= e for s, e, _, _ in kept)
+    # the bounce loop's test before each trip, the chunk keys once a pass
+    sites = [w[3] for w in by["pt.wait"]]
+    assert sites.count("alive.any") >= len(by["pt.bounce"])
+    assert sites.count("chunk keys") == 2
+    # the spans stay out of the profile: its events are the work alone
+    assert not [e.name for e in prof.events() if e.name.startswith("pt.")]
+    assert stats == CASES[case][1]
+
+
+@pytest.mark.parametrize("case", ["bunny", "triangle"])
+def test_no_profiler_enters_record_function(case, monkeypatch):
+    entered = []
+
+    def counting(original):
+        def record_function(*args, **kw):
+            entered.append(args)
+            return original(*args, **kw)
+        return record_function
+    for module in (torch.autograd.profiler, torch.profiler):
+        monkeypatch.setattr(module, "record_function",
+                            counting(module.record_function))
+    (_, stats), kept = kept_by(lambda: render(case))
+    assert entered == [] and kept == []
+    assert stats == CASES[case][1]
+
+
+def test_trace_context_carries_the_spans(tmp_path):
+    log_dir = str(tmp_path / "trace")
+    with metrics.trace_context(log_dir):
+        render("triangle")
+    with open(os.path.join(log_dir, metrics.TRACE_FILE)) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert set(NAMES) <= names
+    assert not metrics._annotate
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_stats_and_image_bits_as_recorded(case):
+    img, stats = render(case)
+    assert stats == CASES[case][1]
+    assert all(isinstance(v, float) for v in stats)
+    assert hashlib.sha256(img.numpy().tobytes()).hexdigest() == \
+        IMAGE_SHA256[case]
+
+
+def test_march_pair_tests_stay_on_the_device():
+    scene, cam = get_world("bunny", device="cpu")
+    ct = build_cluster_tables(scene, K=64)
+    n = 256
+    g = torch.Generator().manual_seed(3)
+    o = cam.position.expand(n, 3).contiguous()
+    d = (cam.lower_left + torch.rand(n, 1, generator=g) * cam.horizontal
+         + torch.rand(n, 1, generator=g) * cam.vertical - o)
+    active = torch.rand(n, generator=g) < 0.8
+    q = cluster_sweep.march_inputs(ct, o, d, 1e-3, active=active,
+                                   extras=(o[:, 0],))
+    _, _, slots = cluster_sweep.march(*q["args"])
+    *_, pairs = cluster_sweep.cluster_march(ct, o, d, 1e-3, active=active,
+                                            extras=(o[:, 0],))
+    assert isinstance(pairs, torch.Tensor) and pairs.dim() == 0
+    assert pairs.dtype == torch.int64
+    want = float(slots.sum()) * ct.K * cluster_sweep.DEF_RAY_TILE
+    assert want > 0 and float(pairs) == want
+
+
+@pytest.mark.parametrize("workload,override", [
+    ("bunny-128spp", {"width": 32, "height": 18, "spp": 16}),
+    ("rtow-100spp", {"width": 32, "height": 18, "spp": 8})])
+def test_traced_cell_reads_the_span_metrics(workload, override,
+                                            monkeypatch):
+    from perfbench.run import run_cell
+    monkeypatch.chdir(ROOT)
+    # the CPU has no stream to wait for
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    result = run_cell(workload, 2147483659, 1.0, True, device="cpu",
+                      config_override=override)
+    assert result["correct"], result["checks"]
+    got = {k: v["value"] for k, v in result["metrics"].items()}
+    new = ("query_host_ms", "query_idle_share", "bounce_host_ms",
+           "host_wait_share")
+    assert all(math.isfinite(got[k]) for k in new), got
+    assert got["query_host_ms"] > 0 and got["bounce_host_ms"] > 0
+    assert 0 < got["host_wait_share"] < 100
+    assert 0 < got["query_idle_share"] <= got["device_idle"]
