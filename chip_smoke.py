@@ -31,7 +31,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    ids (the binning order of the bunny's camera wavefront) and on the same
    order counted down from 2^29 - 1, each with its device time
    (``torch.profiler``), its twin's time, the aten ops the twin
-   dispatches and the int32 bound.
+   dispatches and the int32 bound; (3e) the shading kernel
+   (``csrc/shade_bounce.cu``) on a 16,384-lane chunk of camera rays of
+   each benchmark cell's scene after its closest-hit query (the bunny at
+   640x360 in the sorted march's payload layout, the triangle world at
+   800x450 in caller order), timed beside its twin with the state
+   restored before each call, with its device time, the twin's aten ops
+   and the bytes bound, and its launches on a 1-spp image of each cell's
+   shape.
    Every kernel must agree with its twin to the bit. On every path of the
    later phases the draws kernel must launch, counted from that path's own
    run, and the draw sets it recorded there (the first and last of each
@@ -194,7 +201,9 @@ largest main-path set, by_ray m = 6 on 57,600 ids; for ``bvh_traverse``,
 which replaces no Pallas kernel, launches on 8c''s bench-shape bunny,
 ``path_launches`` on each "bvh" render of 8c and 8c', 8g's viewer
 session, 9a's bench and 9e's dry run, and the times of the bunny's camera
-wavefront), error, times and bound; the last line is
+wavefront; for ``shade_bounce``, which replaces no Pallas kernel,
+``path_launches`` on phase 3e's two images and the times of the bunny's
+chunk), error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
@@ -206,6 +215,10 @@ and the kernel's own device time (``torch.profiler``, the mean over 20
 launches), beside the card's name and power limit. With DIR it imports
 ``pathtracer_tpu_torch`` from that checkout instead of this one, so one
 command can time two versions of the kernels on one card, in turns.
+
+    python3 chip_smoke.py --shade
+
+runs phase 3e alone.
 
     python3 chip_smoke.py --launches [DIR]
 
@@ -239,6 +252,7 @@ CORNELL_RAYS = 65536   # cornell-full chunk (256x256)
 BUNNY_PRIMS = 3619     # assets/bunny.obj's 3,616 faces and three spheres
 TRIANGLE_SPP = 40      # of the reference's 100, cut for the script's time
 BENCH_REPS = 20        # timed calls per wavefront or launch in --bench
+SHADE_LANES = 16384    # the benchmark cells' chunk
 T_MIN = 1e-3
 ROUNDS_K = 128         # the rounds strategy needs K % 128 == 0
 FIT_STEPS = 30         # Adam steps of the inverse-rendering fit
@@ -2128,6 +2142,139 @@ def draws_kernel(dev, card, ct, o_cam, d_cam):
     return main, err
 
 
+def shade_chunk(dev, cell: str):
+    """The shading step's arguments on a 16,384-lane chunk of camera rays
+    of a benchmark cell's scene (the bunny, 640x360, through the sorted
+    march and in its payload layout; the triangle world, 800x450, through
+    the tensor route in caller order), after the chunk's closest-hit
+    query, as the integrator's first bounce holds them."""
+    import torch
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import shade, uniforms
+    from pathtracer_tpu_torch.render.renderer import make_query
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    name, w, h = (("bunny", 640, 360) if cell == "bunny"
+                  else ("triangle", 800, 450))
+    scene, cam = get_world(name, device=dev)
+    query = make_query(scene, RenderConfig(
+        width=w, height=h, spp=1, max_depth=4, ray_chunk=SHADE_LANES,
+        accel="auto", scene=name))
+    n = SHADE_LANES
+    o, d = camera_wavefront(dev, cam, n, 0)
+    atten = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    emitted = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    rid = torch.arange(n, dtype=torch.int32, device=dev)
+    key = (0, 1)
+    args = dict(tables=shade.shade_tables(query.scene),
+                emitted=emitted.unbind(1), u_rr=None, t_min=T_MIN)
+    if cell == "bunny":
+        flags = shade.encode_flags(rid, ~alive, alive)
+        idx, _, hit, o, d, alive, ex, _ = query.closest.query_sorted(
+            o, d, alive, (*atten.unbind(1), flags))
+        rid = ex[3] & shade.RID_MASK
+        args.update(atten=ex[0:3], absorbed=ex[3])
+    else:
+        idx, _, hit = query.closest(o, d)
+        args.update(atten=atten.unbind(1), absorbed=~alive)
+    args.update(idx=idx, hit_valid=hit, o=o, d=d, alive=alive,
+                u=uniforms.uniform_by_ray(key, rid, 6))
+    return args
+
+
+def shade_kernel(dev, card, reps: int = 20):
+    """Phase 3e: the shading kernel against its twin on a 16,384-lane chunk
+    of each benchmark cell's scene (:func:`shade_chunk`), bit for bit, each
+    timed beside its twin and its bound, with the aten ops the twin
+    dispatches; the state is restored, untimed, before every call. Returns
+    the kernels-line numbers of the bunny's chunk and the cells' launches
+    of one 1-spp image at their shapes."""
+    import torch
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import shade
+    from pathtracer_tpu_torch.render.renderer import make_renderer
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    main = None
+    for cell in ("bunny", "rtow"):
+        args = shade_chunk(dev, cell)
+        state = [args[k] for k in ("o", "d", "alive", "absorbed")]
+        state += list(args["atten"]) + list(args["emitted"])
+        saved = [x.clone() for x in state]
+
+        def restore():
+            for x, y in zip(state, saved):
+                x.copy_(y)
+
+        def run(fn):
+            restore()
+            fn(**args)
+            torch.cuda.synchronize()
+            return [x.clone() for x in state]
+
+        got = run(shade.shade_bounce)
+        ref = run(shade.shade_reference)
+        if not all(torch.equal(a.contiguous().view(torch.uint8),
+                               b.contiguous().view(torch.uint8))
+                   for a, b in zip(got, ref)):
+            fail(f"shade_bounce {cell} chunk: kernel and twin are not "
+                 f"bit-equal")
+
+        def timed(fn):
+            times = []
+            for _ in range(reps + 1):
+                restore()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(**args)
+                stop.record()
+                stop.synchronize()
+                times.append(start.elapsed_time(stop))
+            return statistics.median(times[1:])
+
+        restore()
+        with op_counter() as ops:
+            shade.shade_reference(**args)
+        ms = timed(shade.shade_bounce)
+        plain_ms = timed(shade.shade_reference)
+        dev_ms = device_ms(lambda: (restore(), shade.shade_bounce(**args)),
+                           torch, reps, "shade_bounce_kernel")
+        # each lane's inputs read once and its state written once, and the
+        # tables it gathers from read once
+        t = args["tables"]
+        lanes = (nbytes(args["idx"], args["hit_valid"], args["u"], *state)
+                 + nbytes(args["o"], args["d"], args["alive"],
+                          args["absorbed"], *args["atten"],
+                          *args["emitted"]))
+        n_bytes = lanes + nbytes(t.prims, t.mats, t.scene.textures)
+        b_ms, b_by = bound(n_bytes, 0.0)
+        live = int(args["alive"].sum())
+        hits = int((args["alive"] & args["hit_valid"]).sum())
+        print(f"shade_bounce {cell} chunk ({SHADE_LANES} lanes, {live} "
+              f"live, {hits} hits), bit-equal to the twin: kernel "
+              f"{ms:.4f} ms, {ms_text(dev_ms)}; plain twin "
+              f"{plain_ms:.4f} ms ({ops.n} aten ops dispatched), bound "
+              f"{b_ms * 1e3:.4f} us ({b_by}, {n_bytes / 1e6:.4f} MB) "
+              f"[{card}]", flush=True)
+        if cell == "bunny":
+            main = (ms, plain_ms, b_ms, b_by)
+    path_launches = {}
+    for cell, cfg in (
+            ("bunny 640x360 1 spp", RenderConfig(
+                width=640, height=360, spp=1, max_depth=4, ray_chunk=16384,
+                scene="bunny")),
+            ("rtow 800x450 1 spp", RenderConfig(
+                width=800, height=450, spp=1, max_depth=50,
+                ray_chunk=16384, scene="triangle"))):
+        scene, cam = get_world(cfg.scene, device=dev)
+        shade.SHADE_LAUNCHES = 0
+        make_renderer(cfg, dev)(scene, cam)
+        torch.cuda.synchronize()
+        path_launches[cell] = shade.SHADE_LAUNCHES
+        print(f"shade_bounce launches, {cell}: {shade.SHADE_LAUNCHES}")
+    return main, path_launches
+
+
 def draws_on_paths(run_cli, cli_draws, bunny_argv, out, card, cli, torch):
     """Phase 10 (module docstring), every launch counter reset just before
     each render and read just after; ``run_cli`` is phase 4's CLI runner,
@@ -2374,6 +2521,9 @@ def main() -> int:
     ap.add_argument("--launches", nargs="?", const=HERE, metavar="DIR",
                     help="profile the triangle world at 1 spp, with the "
                     "port imported from DIR, and list its kernels' launches")
+    ap.add_argument("--shade", action="store_true",
+                    help="phase 3e alone: the shading kernel against its "
+                    "twin on a chunk of each benchmark cell's scene, timed")
     opts = ap.parse_args()
     try:
         import torch
@@ -2385,6 +2535,10 @@ def main() -> int:
         return bench(opts.bench)
     if opts.launches:
         return launch_list(opts.launches)
+    if opts.shade:
+        sys.path.insert(0, HERE)
+        shade_kernel(torch.device(DEVICE), card_line())
+        return 0
     sys.path.insert(0, HERE)
     try:
         from pathtracer_tpu_torch.ops import (_cuda_build, cluster_sweep,
@@ -2414,7 +2568,7 @@ def main() -> int:
 
     # 2. build, every source at once
     kernels = ("cluster_march", "dense_sweep", "window_sweep",
-               "ray_uniforms", "bvh_traverse")
+               "ray_uniforms", "bvh_traverse", "shade_bounce")
     t0 = time.perf_counter()
     _cuda_build.build_all(kernels)
     for name in kernels:
@@ -2572,6 +2726,12 @@ def main() -> int:
     t3d = time.perf_counter()
     draws_main, draws_err = draws_kernel(dev, card, ct, o_cam, d_cam)
     print(f"phase 3d took {time.perf_counter() - t3d:.1f} s")
+
+    # 3e. the shading kernel against its twin, bit for bit, on a chunk of
+    # each benchmark cell's scene, and its launches on their images
+    t3e = time.perf_counter()
+    shade_main, shade_paths = shade_kernel(dev, card)
+    print(f"phase 3e took {time.perf_counter() - t3e:.1f} s")
 
     # 4. the main paths through the CLI's code path; each render's draws
     # launches and draw signatures by its image's name, and its draws held
@@ -2801,6 +2961,14 @@ def main() -> int:
         "path_launches": bvh_paths, "max_abs_err": bvh_err,
         "ms": bvh_main[0], "plain_ms": bvh_main[1],
         "bound_ms": bvh_main[2], "bound_by": bvh_main[3],
+        "library_ms": None}, {
+        "name": "shade_bounce", "route": "cuda",
+        "source": "pathtracer_tpu_torch/csrc/shade_bounce.cu",
+        "replaces": None,
+        "launches": shade_paths["bunny 640x360 1 spp"],
+        "path_launches": shade_paths, "max_abs_err": 0.0,
+        "ms": shade_main[0], "plain_ms": shade_main[1],
+        "bound_ms": shade_main[2], "bound_by": shade_main[3],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

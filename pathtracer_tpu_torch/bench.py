@@ -197,21 +197,23 @@ def device_stamp(on_card: bool) -> dict:
 def launch_counts() -> dict:
     """Each kernel wrapper's launches since its counter was last reset."""
     from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
-                                          traversal, uniforms)
+                                          shade, traversal, uniforms)
     return {"cluster_march": cluster_sweep.MARCH_LAUNCHES,
             "dense_sweep": pallas_sweep.SWEEP_LAUNCHES,
             "window_sweep": cluster_sweep.WINDOW_LAUNCHES,
             "ray_uniforms": uniforms.UNIFORMS_LAUNCHES,
-            "bvh_traverse": traversal.TRAVERSE_LAUNCHES}
+            "bvh_traverse": traversal.TRAVERSE_LAUNCHES,
+            "shade_bounce": shade.SHADE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
-                                          traversal, uniforms)
+                                          shade, traversal, uniforms)
     cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
     pallas_sweep.SWEEP_LAUNCHES = 0
     uniforms.UNIFORMS_LAUNCHES = 0
     traversal.TRAVERSE_LAUNCHES = 0
+    shade.SHADE_LAUNCHES = 0
 
 
 def env_knobs() -> dict:

@@ -17,6 +17,14 @@ restores pixel order. Otherwise each bounce queries in caller order.
 Random draws are keyed by ray id, so they do not depend on lane order;
 they go through the draws kernel's wrapper (``ops/uniforms``).
 
+A bounce shades (hit record, scatter, state update) in one call of
+``ops/shade.shade_bounce``, one launch of the shading kernel on the card,
+which writes the state in place; in the sorted wavefront that state stays
+in the march's payload layout, three planes and the flags word, between
+bounces. Under NEE or ``differentiable`` the bounce runs the same step as
+torch ops (``ops/shade``'s parts), with NEE's light sample between the
+scatter and the advance.
+
 Each trip of the loop is a ``pt.bounce`` span, each closest-hit and
 shadow query a ``pt.query`` and the loop's test a ``pt.wait``
 (``utils/metrics.span``, recorded only while a profiler records). The
@@ -29,9 +37,10 @@ balance heuristic, while camera rays and paths after a delta lobe keep the
 full emissive weight.
 
 With ``rr`` (Russian roulette), from bounce ``rr_depth`` on a continuing
-path survives with probability K_RR_CONTINUE and its attenuation is scaled
-by K_RR_INV_CONTINUE; the kill applies to the continuation only, so the
-bounce's own emission and light sample keep their full weight.
+path survives with probability ``shade.K_RR_CONTINUE`` and its attenuation
+is scaled by ``shade.K_RR_INV_CONTINUE``; the kill applies to the
+continuation only, so the bounce's own emission and light sample keep
+their full weight.
 
 With ``differentiable``, visibility is detached: every closest-hit and
 shadow query gets detached rays, in caller order (no sorted protocol), and
@@ -48,20 +57,13 @@ import torch
 
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core import vec
-from pathtracer_tpu_torch.ops import intersect, uniforms
+from pathtracer_tpu_torch.ops import intersect, shade, uniforms
 from pathtracer_tpu_torch.render import lights
-from pathtracer_tpu_torch.scene import materials
 from pathtracer_tpu_torch.scene.scene import Scene
 from pathtracer_tpu_torch.utils import metrics
 
 SKY_WHITE = (1.0, 1.0, 1.0)
 SKY_BLUE = (0.5, 0.7, 1.0)
-
-_RID_BITS = 29   # ray ids share one int32 payload with two flags
-
-# Russian roulette: continue probability and survivor scale
-K_RR_CONTINUE = 0.8
-K_RR_INV_CONTINUE = 1.25
 
 
 def sky_color(direction):
@@ -88,6 +90,14 @@ def _any_alive(alive) -> bool:
         return bool(alive.any())
 
 
+def _fused_shading(differentiable: bool, use_nee: bool) -> bool:
+    """Whether each bounce shades in one ``ops/shade.shade_bounce`` call
+    (the kernel on the card, its twin on the CPU): everywhere but under
+    autograd, which needs the torch composition, and NEE, whose shadow
+    query comes between the scatter and the advance."""
+    return not differentiable and not use_nee
+
+
 def trace(scene: Scene, origin, direction, key, max_depth: int,
           closest_hit_fn, t_min: float = 1e-3, sky: bool = True,
           terminate_black: bool = False, nee: bool = False, rr: bool = False,
@@ -112,16 +122,25 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     n_rays = origin.shape[0]
     dev = origin.device
     use_nee = nee and scene.num_lights > 0
+    # one kernel launch a bounce where nothing else happens between the
+    # scatter and the advance; NEE's shadow query and autograd need the
+    # torch composition
+    fused = _fused_shading(differentiable, use_nee)
     handles_dead = getattr(closest_hit_fn, "handles_dead", False)
     query_sorted = (None if differentiable
                     else getattr(closest_hit_fn, "query_sorted", None))
     tile = getattr(closest_hit_fn, "ray_tile", 1)
     sorted_mode = query_sorted is not None and n_rays % tile == 0
-    packed = intersect.packed_hit_fields(scene)
+    # the kernel takes no tensor that requires grad
+    tables = shade.shade_tables(Scene(*(x.detach() for x in scene))
+                                if fused else scene)
     # emitted radiance stays zero without emissive prims: skip carrying it
     carry_emit = scene.num_lights > 0
 
     o, d = origin, direction
+    if fused:
+        # the shading kernel writes the rays in place
+        o, d = origin.detach().clone(), direction.detach().clone()
     atten = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
     alive = torch.ones(n_rays, dtype=torch.bool, device=dev)
     absorbed = torch.zeros(n_rays, dtype=torch.bool, device=dev)
@@ -130,6 +149,12 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     # solid-angle pdf of the bounce that chose the current direction
     prev_pdf = torch.zeros(n_rays, dtype=torch.float32, device=dev)
     rid = torch.arange(n_rays, dtype=torch.int32, device=dev)
+    # the shading kernel's view of the state: (R,) planes, and in the sorted
+    # wavefront the march's payload, where the ray id and flags share one
+    # int32 word (ops/shade.encode_flags)
+    atten_p, emit_p = atten.unbind(1), emitted_acc.unbind(1)
+    flags = shade.encode_flags(rid, absorbed, spec_prev) if sorted_mode \
+        else None
     counts = [0.0, 0.0, 0.0]
     device_counts = []
 
@@ -142,27 +167,21 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
             else:
                 counts[0] += n_rays
             if sorted_mode:
-                # ray id and flags share one int32 payload of the sort
-                flags = (rid | (absorbed.to(torch.int32) << _RID_BITS)
-                         | (spec_prev.to(torch.int32) << (_RID_BITS + 1)))
-                extras = (atten[:, 0], atten[:, 1], atten[:, 2], flags)
+                extras = (*atten_p, flags)
                 if carry_emit:
-                    extras += tuple(emitted_acc.unbind(1))
+                    extras += emit_p
                 if use_nee:
                     extras += (prev_pdf,)
                 with metrics.span("pt.query", "closest"):
                     idx, _, hit_valid, o, d, alive, ex, pairs = query_sorted(
                         o.detach(), d.detach(), alive, extras)
                 device_counts.append((2, pairs))
-                atten = torch.stack(ex[0:3], dim=1)
-                flags = ex[3]
-                rid = flags & ((1 << _RID_BITS) - 1)
-                absorbed = ((flags >> _RID_BITS) & 1) != 0
-                spec_prev = ((flags >> (_RID_BITS + 1)) & 1) != 0
+                atten_p, flags = ex[0:3], ex[3]
                 if carry_emit:
-                    emitted_acc = torch.stack(ex[4:7], dim=1)
+                    emit_p = ex[4:7]
                 if use_nee:
                     prev_pdf = ex[-1]
+                rid = flags & shade.RID_MASK
             else:
                 d_query = torch.where(alive[:, None], d, 0.0) if handles_dead \
                     else d
@@ -175,74 +194,86 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                         "build its tables from a detached scene (render/"
                         "renderer.make_query)")
             u_scatter = uniforms.uniform_by_ray(bkey, rid, 6)
-            rec = intersect.hit_records_from_prims(
-                scene, idx, o, d, t_min, intersect.BIG_T, hit_valid,
-                packed=packed)
-            sc = materials.scatter(scene, rec, d, u_scatter)
-
-            active = alive & hit_valid
-            hit_emitter = active & sc.is_emissive
-            if use_nee:
-                w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d, prev_pdf)
-                emit_w = torch.where(spec_prev, 1.0, w_bsdf)
-                emitted = atten * sc.emitted * emit_w[:, None]
-            else:
-                emitted = atten * sc.emitted
-            emitted_acc = emitted_acc + torch.where(hit_emitter[:, None],
-                                                    emitted, 0.0)
-            newly_absorbed = active & ~sc.is_emissive & ~sc.ok
-            absorbed = absorbed | newly_absorbed | hit_emitter
-            step = active & sc.ok & ~sc.is_emissive
+            u_rr = None
             if rr and depth >= rr_depth:
-                # decided for the continuation; the NEE bookkeeping below still
+                # decided for the continuation; the NEE bookkeeping still
                 # sees the bounce's own step
                 u_rr = uniforms.uniform_by_ray(prng.fold_in(bkey, 2), rid,
                                                1)[:, 0]
-                killed = step & (u_rr >= K_RR_CONTINUE)
-                rr_scale = torch.where(step & ~killed, K_RR_INV_CONTINUE, 1.0)
+            if fused:
+                shade.shade_bounce(tables, idx, hit_valid, o, d, atten_p,
+                                   emit_p, alive,
+                                   flags if sorted_mode else absorbed,
+                                   u_scatter, u_rr, t_min)
             else:
+                if sorted_mode:
+                    atten = torch.stack(atten_p, dim=1)
+                    _, absorbed, spec_prev = shade.decode_flags(flags)
+                    if carry_emit:
+                        emitted_acc = torch.stack(emit_p, dim=1)
+                rec, sc = shade.surface(tables, idx, o, d, hit_valid,
+                                        u_scatter, t_min)
+                emit_w = None
+                if use_nee:
+                    w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d,
+                                                          prev_pdf)
+                    emit_w = torch.where(spec_prev, 1.0, w_bsdf)
+                active, step, emitted_acc, absorbed = shade.absorb(
+                    sc, alive, hit_valid, atten, emitted_acc, absorbed,
+                    emit_w)
                 killed = rr_scale = None
+                if u_rr is not None:
+                    killed, rr_scale = shade.roulette(step, u_rr)
 
-            if use_nee:
-                u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1), rid, 3)
-                # every diffuse or glossy hit takes a light sample, whether or
-                # not its own BSDF sample survives (sc.ok)
-                take_direct = (active & ~sc.is_emissive
-                               & (sc.is_diffuse | sc.is_glossy))
-                if handles_dead:
-                    device_counts.append((1, take_direct.sum()))
-                else:
-                    counts[1] += n_rays
-                direct, _ = lights.direct_lighting(
-                    scene, rec.p, rec.normal, sc.attenuation, closest_hit_fn,
-                    u_nee, (sc.is_glossy, sc.glossy_r, sc.fuzz), eps=t_min,
-                    active=take_direct if handles_dead else None)
-                emitted_acc = emitted_acc + torch.where(
-                    take_direct[:, None], atten * direct, 0.0)
-                # fuzzy metal has a finite lobe and weighs emissive hits like
-                # diffuse; only delta lobes keep the full emissive weight
-                spec_prev = torch.where(step, sc.is_specular & ~sc.is_glossy,
-                                        spec_prev)
-                w_new = vec.safe_normalize(sc.direction)
-                new_cos = torch.clamp(vec.dot(rec.normal, w_new), min=0.0)
-                p_new = torch.where(sc.is_glossy,
-                                    lights.metal_lobe_pdf(w_new, sc.glossy_r,
-                                                          sc.fuzz),
-                                    new_cos * vec.PI_INV)
-                prev_pdf = torch.where(step & take_direct, p_new, prev_pdf)
+                if use_nee:
+                    u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1),
+                                                    rid, 3)
+                    # every diffuse or glossy hit takes a light sample,
+                    # whether or not its own BSDF sample survives (sc.ok)
+                    take_direct = (active & ~sc.is_emissive
+                                   & (sc.is_diffuse | sc.is_glossy))
+                    if handles_dead:
+                        device_counts.append((1, take_direct.sum()))
+                    else:
+                        counts[1] += n_rays
+                    direct, _ = lights.direct_lighting(
+                        scene, rec.p, rec.normal, sc.attenuation,
+                        closest_hit_fn, u_nee,
+                        (sc.is_glossy, sc.glossy_r, sc.fuzz), eps=t_min,
+                        active=take_direct if handles_dead else None)
+                    emitted_acc = emitted_acc + torch.where(
+                        take_direct[:, None], atten * direct, 0.0)
+                    # fuzzy metal has a finite lobe and weighs emissive hits
+                    # like diffuse; only delta lobes keep the full emissive
+                    # weight
+                    spec_prev = torch.where(step,
+                                            sc.is_specular & ~sc.is_glossy,
+                                            spec_prev)
+                    w_new = vec.safe_normalize(sc.direction)
+                    new_cos = torch.clamp(vec.dot(rec.normal, w_new),
+                                          min=0.0)
+                    p_new = torch.where(sc.is_glossy,
+                                        lights.metal_lobe_pdf(
+                                            w_new, sc.glossy_r, sc.fuzz),
+                                        new_cos * vec.PI_INV)
+                    prev_pdf = torch.where(step & take_direct, p_new,
+                                           prev_pdf)
 
-            bounce_atten = atten * sc.attenuation
-            if killed is not None:
-                step = step & ~killed
-                absorbed = absorbed | killed
-                bounce_atten = bounce_atten * rr_scale[:, None]
-            o = torch.where(step[:, None], rec.p, o)
-            d = torch.where(step[:, None], sc.direction, d)
-            atten = torch.where(step[:, None], bounce_atten, atten)
-            # a miss leaves the loop and keeps its last direction for the sky
-            alive = alive & hit_valid & step
+                o, d, atten, alive, absorbed = shade.advance(
+                    rec, sc, step, o, d, atten, alive, hit_valid, absorbed,
+                    killed, rr_scale)
+                if sorted_mode:
+                    atten_p = atten.unbind(1)
+                    flags = shade.encode_flags(rid, absorbed, spec_prev)
+                    if carry_emit:
+                        emit_p = emitted_acc.unbind(1)
             depth += 1
 
+    if sorted_mode:
+        atten = torch.stack(atten_p, dim=1)
+        rid, absorbed, _ = shade.decode_flags(flags)
+        if carry_emit:
+            emitted_acc = torch.stack(emit_p, dim=1)
     if sky:
         background = sky_color(d)
     else:

@@ -24,15 +24,17 @@ from pathtracer_tpu_torch.config import K_SHADOW_T_MIN, RenderConfig
 from pathtracer_tpu_torch.core import random as prng
 from pathtracer_tpu_torch.core.camera import get_rays
 from pathtracer_tpu_torch.ops import (cluster_sweep, intersect, pallas_sweep,
-                                      traversal, uniforms)
+                                      shade, traversal, uniforms)
 from pathtracer_tpu_torch.core import vec
 from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
 from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, pack_sweep_tables,
                                                    ray_features)
 from pathtracer_tpu_torch.presets import get_preset
-from pathtracer_tpu_torch.render import diff
+from pathtracer_tpu_torch.render import diff, integrator
 from pathtracer_tpu_torch.render.renderer import make_renderer
 from pathtracer_tpu_torch.scene.worlds import get_world
+
+import shade_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -905,3 +907,148 @@ def test_small_nee_rr_render_draws_on_the_card(gpu):
     diff = np.abs(g - c)
     assert np.isfinite(g).all()
     assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3
+
+
+def _as_bits(x):
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("layout", ["caller", "march"])
+@pytest.mark.parametrize("rr", [False, True], ids=["no_rr", "rr"])
+@pytest.mark.parametrize("material", shade_cases.MATERIALS)
+@pytest.mark.parametrize("prim", shade_cases.PRIMS)
+def test_shade_kernel_matches_twin(gpu, prim, material, rr, layout):
+    """The shading kernel against its twin's torch composition on the
+    card, from the same state, bit for bit: every primitive kind and
+    material case, with and without roulette, in caller order (the (N, 3)
+    state) and in march order (shuffled lanes, separate planes, the flags
+    word); one launch, and none by the twin."""
+    case = shade_cases.make_case(prim, material, rr)
+    ref = shade_cases.state(case, layout, gpu)
+    got = shade_cases.state(case, layout, gpu)
+    before = shade.SHADE_LAUNCHES
+    shade.shade_reference(**ref)
+    assert shade.SHADE_LAUNCHES == before
+    shade.shade_bounce(**got)
+    assert shade.SHADE_LAUNCHES == before + 1
+    a, b = shade_cases.results(got), shade_cases.results(ref)
+    for f in a:
+        np.testing.assert_array_equal(_as_bits(a[f]), _as_bits(b[f]),
+                                      err_msg=f)
+    assert (a["alive"] != shade_cases.results(
+        shade_cases.state(case, layout, "cpu"))["alive"]).any()
+
+
+def _math_inputs(fn, dev):
+    """Float32 inputs over the ranges the kernel calls each function on,
+    and beyond: 2^22 of them, plus the edges."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    n = 1 << 22
+    u = torch.rand(n, generator=g)
+    if fn in ("sin", "cos"):
+        a = torch.cat([(2.0 * vec.PI) * u, (u - 0.5) * 200.0])
+    elif fn in ("acos", "atan2"):
+        a = torch.cat([u * 2.0 - 1.0, torch.tensor([-1.0, 1.0, 0.0, -0.0])])
+    elif fn == "pow5":
+        a = torch.cat([u * 2.0, torch.tensor([0.0, 1.0])])
+    else:
+        a = torch.cat([u, torch.tensor([0.0, 1e-30])])
+    b = torch.rand(a.shape[0], generator=g) * 2.0 - 1.0
+    b[-4:] = torch.tensor([0.0, -0.0, 1.0, -1.0])
+    return a.to(dev), b.to(dev)
+
+
+@pytest.mark.parametrize("fn", shade.MATH_FUNCTIONS)
+def test_shade_math_calls_match_torch(gpu, fn):
+    """The math library calls of the shading kernel against torch's CUDA
+    ops of the same function, which the twin calls, bit for bit."""
+    a, b = _math_inputs(fn, gpu)
+    ref = {"sin": lambda: torch.sin(a), "cos": lambda: torch.cos(a),
+           "acos": lambda: torch.acos(a),
+           "atan2": lambda: torch.atan2(a, b),
+           "pow5": lambda: torch.pow(a, 5.0),
+           "cbrt": lambda: torch.pow(a, 1.0 / 3.0)}[fn]()
+    got = shade.math_kernel(fn, a, b if fn == "atan2" else None)
+    differ = (got.view(torch.int32) != ref.view(torch.int32))
+    assert int(differ.sum()) == 0, (
+        f"{fn}: {int(differ.sum())} of {a.numel()} differ, e.g. at "
+        f"{a[differ][:3].tolist()}: {got[differ][:3].tolist()} vs "
+        f"{ref[differ][:3].tolist()}")
+
+
+def _count_bounces(monkeypatch):
+    """A list whose first entry counts the bounces the integrator runs
+    from now on (the loop's test passing)."""
+    count = [0]
+    test = integrator._any_alive
+
+    def counting(alive):
+        going = test(alive)
+        count[0] += going
+        return going
+    monkeypatch.setattr(integrator, "_any_alive", counting)
+    return count
+
+
+@pytest.mark.parametrize("cell", ["bunny", "rtow"])
+def test_shade_launches_are_the_bounces_of_a_bench_render(gpu, cell,
+                                                          monkeypatch):
+    """One sample of a benchmark cell's image at its shape (the bunny
+    640x360, depth 4, on the sorted march; the triangle world 800x450,
+    depth 50, on the tensor route; chunks of 16,384): one shading launch
+    a bounce, every bounce."""
+    if cell == "bunny":
+        cfg = RenderConfig(width=640, height=360, spp=1, max_depth=4,
+                           ray_chunk=16384, accel="auto", scene="bunny")
+    else:
+        cfg = RenderConfig(width=800, height=450, spp=1, max_depth=50,
+                           ray_chunk=16384, accel="auto", scene="triangle")
+    scene, cam = get_world(cfg.scene, device=gpu)
+    count = _count_bounces(monkeypatch)
+    shade.SHADE_LAUNCHES = 0
+    img = make_renderer(cfg, gpu)(scene, cam)
+    torch.cuda.synchronize()
+    assert count[0] > 0 and shade.SHADE_LAUNCHES == count[0]
+    assert torch.isfinite(img).all()
+
+
+def test_shade_kernel_idles_under_nee_and_autograd(gpu, monkeypatch):
+    """NEE's bounces and the differentiable pass keep the torch
+    composition: no shading launch, though they bounce."""
+    count = _count_bounces(monkeypatch)
+    shade.SHADE_LAUNCHES = 0
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=3,
+                       ray_chunk=1024, accel="pallas", scene="cornell",
+                       sky=False, nee=True, rr=True, rr_depth=1)
+    scene, cam = get_world("cornell", device=gpu)
+    make_renderer(cfg, gpu)(scene, cam)
+    make, cfg = _small_diff_case("bunny")
+    diff.paired_gradients(make, cfg, (gpu, "cpu"))
+    assert count[0] > 0 and shade.SHADE_LAUNCHES == 0
+
+
+def test_shade_wrapper_rejects_bad_inputs(gpu):
+    case = shade_cases.make_case("sphere", "lambertian", False)
+    good = shade_cases.state(case, "caller", gpu)
+
+    def bad(**changes):
+        return {**shade_cases.state(case, "caller", gpu), **changes}
+    before = shade.SHADE_LAUNCHES
+    with pytest.raises(TypeError):
+        shade.shade_bounce(**bad(idx=good["idx"].to(torch.int32)))
+    with pytest.raises(TypeError):
+        shade.shade_bounce(**bad(alive=good["alive"].to(torch.uint8)))
+    with pytest.raises(ValueError):
+        shade.shade_bounce(**bad(u=good["u"][:, :5].contiguous()))
+    with pytest.raises(ValueError):
+        shade.shade_bounce(**bad(o=good["o"][:-1]))
+    with pytest.raises(ValueError):
+        shade.shade_bounce(**bad(alive=good["alive"].cpu()))
+    with pytest.raises(ValueError):
+        shade.shade_bounce(**bad(atten=good["atten"][:2]))
+    with pytest.raises(ValueError):
+        shade.shade_bounce(**bad(atten=(good["atten"][0].contiguous(),)
+                                 + good["atten"][1:]))
+    with pytest.raises(ValueError):
+        shade.shade_bounce(**bad(o=good["o"].requires_grad_()))
+    assert shade.SHADE_LAUNCHES == before

@@ -43,6 +43,10 @@ RENAMED = {
     # the rays one block of the dense sweep holds: kLanes x kRT
     "ops/pallas_sweep.py::DEF_RAY_TILE": "csrc/dense_sweep.cu::kLanes",
     "oracle.py::compare_to_jax": "oracle.py::compare_to_torch",
+    # Russian roulette's constants live with the shading step it is part of
+    "render/integrator.py::K_RR_CONTINUE": "ops/shade.py::K_RR_CONTINUE",
+    "render/integrator.py::K_RR_INV_CONTINUE":
+        "ops/shade.py::K_RR_INV_CONTINUE",
     "oracle.py::render_jax_linear": "oracle.py::render_torch_linear",
     # the tables are built once per scene by the renderer's query
     "render/renderer.py::prepare_cluster_tables":
