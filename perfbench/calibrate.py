@@ -55,11 +55,13 @@ def faulty_render_sum(real, fault: str):
 
 def control_answers(config: dict, traffic: dict, scene, answers, pixels,
                     device):
-    """The control's answers: for each (seed, samples) of ``answers``, the
-    reference in TF32 at ``pixels``, shaped as ``compare.take`` gives."""
-    return [(seed, n, compare.reference_rows(
-        config, scene, pixels, seed, n, traffic["spp_per_pass"], device,
-        precision="tf32").cpu(), None) for seed, n, _, _ in answers]
+    """The control's answers: for each answer of ``answers``
+    (``compare.Taken``), the reference in TF32 at ``pixels`` at its seed,
+    samples and spp."""
+    return [compare.Taken(a.seed, a.samples, compare.reference_rows(
+        config, scene, pixels, a.seed, a.samples, traffic["spp_per_pass"],
+        device, precision="tf32", spp=a.spp).cpu(), None, a.spp)
+        for a in answers]
 
 
 def spread(taken, expected) -> dict:
@@ -136,9 +138,10 @@ def main(argv=None) -> int:
         del window.answers
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        expected = [compare.reference_rows(config, scene, pixels, s, n,
-                                           traffic["spp_per_pass"], "cuda")
-                    for s, n, _, _ in taken]
+        expected = [compare.reference_rows(config, scene, pixels, a.seed,
+                                           a.samples, traffic["spp_per_pass"],
+                                           "cuda", spp=a.spp)
+                    for a in taken]
         ref_s = time.perf_counter() - t
         side = ("traced" if capture else f"fault:{fault}" if fault
                 else "program")
@@ -149,7 +152,7 @@ def main(argv=None) -> int:
         for name, got in sides:
             row = dict(workload=args.workload, seed=seed, side=name,
                        passes=window.passes,
-                       samples=[n for _, n, _, _ in got],
+                       samples=[a.samples for a in got],
                        reference_s=ref_s,
                        **compare.numbers(got, expected, off_at),
                        spread=spread(got, expected))

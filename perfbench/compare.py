@@ -4,7 +4,10 @@ reference (``perfbench/reference``), at sampled pixels.
 The pixels are drawn from the run's seed (``pixels`` of them, the cell's
 limits file says how many). For every image the window touched, the
 reference renders those pixels at the image's seed, as many samples as
-the framebuffer holds, pass by pass as the renderer sums them. Numbers
+the framebuffer holds, pass by pass as the renderer sums them, with the
+configuration's ``sky`` (default on), ``nee`` (default off) and
+``stratify`` (default off; the strata of the spp that the image's
+renderer was built for, which the driver records on the answer). Numbers
 compared, each against the cell's limit (``perfbench/limits/<cell>.json``):
 
 - ``mean_abs_diff``: the mean over the sampled channels of every answer of
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import importlib
 import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -39,9 +43,17 @@ def sample_pixels(seed: int, num_pixels: int, n: int) -> np.ndarray:
     return np.sort(rng.choice(num_pixels, size=n, replace=False))
 
 
+class Taken(NamedTuple):
+    """An answer's values at the compared pixels, on the host."""
+    seed: int
+    samples: int
+    framebuffer: object            # (P, 3) rows
+    image: object                  # (P, 3) finished values, or None
+    spp: Optional[int] = None      # the spp its renderer was built for
+
+
 def take(answers, pixels):
-    """The answers' values at ``pixels`` on the host: (seed, samples,
-    framebuffer rows (P, 3), image values (P, 3) or None)."""
+    """The answers' :class:`Taken` values at ``pixels``."""
     import torch
     idx = torch.as_tensor(pixels, dtype=torch.int64)
     out = []
@@ -50,7 +62,7 @@ def take(answers, pixels):
         img = None
         if a.image is not None:
             img = a.image.detach().cpu().reshape(-1, 3)[idx]
-        out.append((a.seed, a.samples, fb, img))
+        out.append(Taken(a.seed, a.samples, fb, img, a.spp))
     return out
 
 
@@ -61,13 +73,19 @@ def reference_scene(config: dict, root: str):
 
 
 def reference_rows(config: dict, scene, pixels, seed: int, samples: int,
-                   pass_spp: int, device, precision: str = "fp32"):
+                   pass_spp: int, device, precision: str = "fp32",
+                   spp: Optional[int] = None):
+    """The reference's framebuffer rows; ``spp`` is the spp the image's
+    renderer was built for (default: the configuration's)."""
     from perfbench.reference.render import render_pixels
     w, h = config["width"], config["height"]
+    stratify = (spp or config["spp"]) if config.get("stratify") else None
     return render_pixels(scene, pixels, w, h,
                          min(config["ray_chunk"], w * h), seed, samples,
                          pass_spp, config["max_depth"], config["t_min"],
-                         device, precision)
+                         device, precision, sky_on=config.get("sky", True),
+                         nee=config.get("nee", False),
+                         stratify_spp=stratify)
 
 
 def abs_diffs(taken, expected):
@@ -78,7 +96,7 @@ def abs_diffs(taken, expected):
     tensor per answer); the first is None where there is no answer."""
     import torch
     diffs, prog_sum, ref_sum, nonfinite = [], 0.0, 0.0, 0
-    for (_, samples, fb, img), ref in zip(taken, expected):
+    for (_, samples, fb, img, *_), ref in zip(taken, expected):
         ref = ref.cpu().double()
         fb = fb.double()
         shown = img.double() if img is not None else torch.sqrt(
@@ -139,7 +157,7 @@ def check(root: str, workload: str, config: dict, traffic: dict, taken,
     """(correct, checks) of the taken answers against the reference
     rendering of ``scene`` (:func:`reference_scene`)."""
     limits = load_limits(root, workload)
-    expected = [reference_rows(config, scene, pixels, s, n,
-                               traffic["spp_per_pass"], device)
-                for s, n, _, _ in taken]
+    expected = [reference_rows(config, scene, pixels, a.seed, a.samples,
+                               traffic["spp_per_pass"], device, spp=a.spp)
+                for a in taken]
     return judge(numbers(taken, expected, limits.get("off_at")), limits)

@@ -19,8 +19,10 @@ each closest-hit query under the harness's span
 (``perfbench.trace.span_queries``).
 
 Answers: for each image the window touched, its framebuffer after its
-last whole pass in the window, the samples in it, and the finished image
-where it finished.
+last whole pass in the window, the samples in it, the finished image
+where it finished, and the spp its renderer was built for (the traced
+run's differs from the configuration's, and stratified jitter follows
+it).
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ def _render_config(config: dict, spp: int):
     return RenderConfig(width=config["width"], height=config["height"],
                         spp=spp, max_depth=config["max_depth"],
                         t_min=config["t_min"], sky=config["sky"],
-                        nee=config["nee"], accel=config["accel"],
+                        nee=config["nee"],
+                        stratify=config.get("stratify", False),
+                        accel=config["accel"],
                         ray_chunk=config["ray_chunk"], scene=config["scene"])
 
 
@@ -67,7 +71,7 @@ def setup(config: dict, traffic: dict, seed: int, device: str, traced: bool):
         from perfbench.trace import span_queries
         span_queries(renderer, scene)
     state = SimpleNamespace(seed=seed, device=device, scene=scene, cam=cam,
-                            renderer=renderer, pp=pp,
+                            renderer=renderer, pp=pp, spp=renderer.cfg.spp,
                             pixels=config["width"] * config["height"])
     t = time.perf_counter()
     _warm_up(renderer, scene, cam, image_seed(seed, 0), device)
@@ -109,7 +113,8 @@ def measure(state, seconds: float, capture=None):
     stats = [0.0, 0.0, 0.0]
     for i in range(MAX_IMAGES):
         answer = SimpleNamespace(seed=image_seed(state.seed, i), samples=0,
-                                 framebuffer=None, image=None)
+                                 framebuffer=None, image=None,
+                                 spp=state.spp)
 
         def on_pass(acc, done, answer=answer):
             _sync(state.device)
@@ -140,7 +145,7 @@ def measure(state, seconds: float, capture=None):
 
 def _measure_traced(state, capture):
     answer = SimpleNamespace(seed=image_seed(state.seed, 0), samples=0,
-                             framebuffer=None, image=None)
+                             framebuffer=None, image=None, spp=state.spp)
     passes = [0]
 
     def on_pass(acc, done):

@@ -1,7 +1,8 @@
 """What the harness may load, and how it fails: no module under
 ``perfbench/`` imports JAX, the JAX package or the program's own bench;
-the reference imports nothing of the program; a run with no card, or in a
-checkout without the program, fails with its cause and prints no result."""
+the reference imports nothing of the program and reads no environment
+variable; a run with no card, or in a checkout without the program, fails
+with its cause and prints no result."""
 from __future__ import annotations
 
 import ast
@@ -51,6 +52,13 @@ def test_the_reference_imports_nothing_of_the_program():
     for path in sources("reference"):
         for name in imports(path):
             assert name.split(".")[0] != "pathtracer_tpu_torch", (path, name)
+
+
+def test_the_reference_reads_no_environment_variable():
+    for path in sources("reference"):
+        with open(path) as f:
+            text = f.read()
+        assert "environ" not in text and "getenv" not in text, path
 
 
 def run_harness(cwd, env=None):

@@ -67,7 +67,7 @@ def test_control_is_not_correct(workload):
     config = {**config, **override}
     scene = compare.reference_scene(config, ROOT)
     pixels = compare.pixels_of(ROOT, workload, config, SEED)
-    answers = [(SEED, config["spp"], None, None)]
+    answers = [compare.Taken(SEED, config["spp"], None, None)]
     got = calibrate.control_answers(config, traffic, scene, answers, pixels,
                                     "cpu")
     expected = [compare.reference_rows(config, scene, pixels, SEED,

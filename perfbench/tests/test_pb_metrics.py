@@ -116,6 +116,27 @@ def test_roofline_bytes_and_share():
                                      spheres=3, triangles=4)) is None
 
 
+def test_roofline_counts_shadow_rays_as_ray_bytes():
+    roof = metric("closest_hit_roofline")
+    # no shadow ray: the bytes and the share of the closest-hit rays alone
+    assert roof.needed_bytes(1000, 2, 3, 4, 0.0) == roof.needed_bytes(
+        1000, 2, 3, 4)
+    assert roof.needed_bytes(1000, 2, 3, 4, 250) == 1250 * 36 + 2 * (
+        3 * 16 + 4 * 36)
+    query = [(0, 2_000_000, "elementwise_kernel")]
+    s = summary(query, window=(0, 10_000_000))._replace(
+        query_device=query, query_calls=4)
+
+    def read(stats):
+        return roof.read(SimpleNamespace(
+            trace=s, window=SimpleNamespace(stats=stats), spheres=3,
+            triangles=4))
+    scene = 4 * (3 * 16 + 4 * 36)
+    assert read([1e6, 0.0, 0.0]) == 100 * (1e6 * 36 + scene) / 3.35e12 / 2e-3
+    assert read([1e6, 5e5, 0.0]) == pytest.approx(
+        100 * (1.5e6 * 36 + scene) / 3.35e12 / 2e-3)
+
+
 def test_sync_and_launch_counts_per_msample():
     runtime = {"cudaLaunchKernel": 90, "cuLaunchKernel": 10,
                "cudaStreamSynchronize": 7, "cudaDeviceSynchronize": 3,

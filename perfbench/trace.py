@@ -1,11 +1,11 @@
 """The traced window: a ``torch.profiler`` capture of a few passes, reduced
 in memory to what the per-layer metrics read. No trace file is written.
 
-:func:`span_queries` puts each closest-hit query of a renderer's cached
-route under a ``perfbench.query`` span (the harness's wrapper; the
-program is not changed). :class:`Capture` starts the profiler and a
-``perfbench.window`` span; :meth:`Capture.stop` synchronises, closes both
-and keeps a :class:`Summary`:
+:func:`span_queries` puts each closest-hit and shadow query of a
+renderer's cached route under a ``perfbench.query`` span (the harness's
+wrapper; the program is not changed). :class:`Capture` starts the
+profiler and a ``perfbench.window`` span; :meth:`Capture.stop`
+synchronises, closes both and keeps a :class:`Summary`:
 
 - ``device``: every device interval (kernel, copy, set) in the window,
   as (start_ns, end_ns, name), sorted;
@@ -15,10 +15,10 @@ and keeps a :class:`Summary`:
   annotated spans) as (start_ns, end_ns, name), sorted;
 - ``window_ns``: the span's (start, end) on the trace's clock, and
   ``window_s``: its length on the host clock;
-- ``query_device``: the device intervals of the closest-hit queries, those
-  that the profiler correlates with a runtime call made inside a query
-  span, as (start_ns, end_ns, name), sorted; ``query_calls``: the query
-  spans that start in the window.
+- ``query_device``: the device intervals of the closest-hit and shadow
+  queries, those that the profiler correlates with a runtime call made
+  inside a query span, as (start_ns, end_ns, name), sorted;
+  ``query_calls``: the query spans that start in the window.
 """
 from __future__ import annotations
 
@@ -185,13 +185,14 @@ def reduce_events(events, window_s: float) -> Summary:
 
 
 def span_queries(renderer, scene) -> None:
-    """Put each closest-hit query of ``renderer``'s route for ``scene``
-    (its ``closest`` and, on the march route, ``closest.query_sorted``)
-    under a :data:`QUERY_SPAN` span."""
+    """Put each query of ``renderer``'s route for ``scene`` under a
+    :data:`QUERY_SPAN` span: its ``closest``, NEE's ``closest.query_shadow``
+    and, on the march route, ``closest.query_sorted``."""
     query = renderer.prepare(scene)
     closest = _spanned(query.closest)
-    if hasattr(closest, "query_sorted"):
-        closest.query_sorted = _spanned(closest.query_sorted)
+    for name in ("query_sorted", "query_shadow"):
+        if hasattr(closest, name):
+            setattr(closest, name, _spanned(getattr(closest, name)))
     spanned = query._replace(closest=closest)
     prepare = renderer.prepare
     renderer.prepare = lambda s: spanned if s is scene else prepare(s)
