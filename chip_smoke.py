@@ -1917,8 +1917,9 @@ def entry_points(dev, card, out, path_draws, bvh_paths):
         fail(f"the bench on bvh ran {rec['accel']} with {rec['launches']} "
              f"for {rec['config']['iters']} renders of {queries:g} queries")
 
-    # 9b. the small scenes on the dense sweep and the tensor route (the
-    # auto choice below K_AUTO_ACCEL_PRIMS), in phase 4's chunks, which
+    # 9b. the small scenes on the dense sweep (the auto choice below
+    # K_AUTO_ACCEL_PRIMS on a card) and the tensor route (the reference's
+    # auto choice there, which the CPU keeps), in phase 4's chunks, which
     # divide their images (the bench's default 57,600 pads them, and the
     # dense routes query the padding lanes too)
     bench_sweeps = 0

@@ -4,8 +4,9 @@ on the card (the port of the repository's root ``bench.py``).
 Prints ONE JSON line with the JAX bench's schema-2 keys: ``metric``
 (``{scene}[_sub{k}]_forward_throughput``), ``value`` (nominal Mrays/s:
 pixels x spp x depth over the mean wall), ``unit``, ``vs_baseline``
-(null: the JAX bench's baseline was a TPU chip's), ``accel`` (resolved),
-``prims``, ``nominal_queries``, ``schema``, ``executed_queries`` and
+(null: the JAX bench's baseline was a TPU chip's), ``accel`` (the route
+taken on the device, ``config.route_accel``), ``prims``,
+``nominal_queries``, ``schema``, ``executed_queries`` and
 ``shadow_queries`` (closest-hit and NEE shadow queries made, from the
 renderer's stats), ``executed_mrays_per_s``, ``pair_tests`` and
 ``march_tflops``; and the port's own: ``march_mfu``, ``device`` (the
@@ -257,7 +258,7 @@ def measure(args) -> dict:
     ``--device cuda`` finds no card."""
     import torch
 
-    from pathtracer_tpu_torch.config import resolve_accel
+    from pathtracer_tpu_torch.config import route_accel
     from pathtracer_tpu_torch.ops import _cuda_build
     from pathtracer_tpu_torch.render.renderer import make_renderer
     from pathtracer_tpu_torch.scene.worlds import get_world
@@ -297,7 +298,7 @@ def measure(args) -> dict:
         "value": rate(nominal / 1e6),
         "unit": "Mrays/s",
         "vs_baseline": None,
-        "accel": resolve_accel(args.accel, int(scene.num_prims)),
+        "accel": route_accel(args.accel, int(scene.num_prims), device),
         "prims": int(scene.num_prims),
         "nominal_queries": nominal,
         "schema": 2,

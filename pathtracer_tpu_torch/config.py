@@ -1,12 +1,15 @@
 """Runtime configuration (counterpart of ``pathtracer_tpu/config.py``).
 
 The same frozen dataclass, constants and ``accel="auto"`` rule as the
-reference, so a config round-trips between the two packages.
+reference, so a config round-trips between the two packages; the port
+resolves "auto" on a CUDA device by its own step, :func:`route_accel`.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+
+import torch
 
 K_ASPECT_RATIO = 16.0 / 9.0
 K_FRAME_WIDTH = 800
@@ -17,9 +20,10 @@ K_CAMERA_SPEED = 2.5
 K_T_MIN = 1e-3
 K_SHADOW_T_MIN = 1e-7
 
-# accel="auto" crossover, in primitives: dense sweep below, cluster march at
-# or above. The value is the reference's; it has not been re-measured for
-# this port (ROADMAP Queue 1, item 7).
+# accel="auto" crossover, in primitives: a dense route below, cluster march
+# at or above. The value is the reference's. On an H100 the sweep kernel
+# led the tensor route at 36, 601 and 1,023 prims, so the port keeps the
+# crossover and only swaps the dense route on the card (PERF.md §6).
 K_AUTO_ACCEL_PRIMS = 1024
 
 
@@ -28,6 +32,19 @@ def resolve_accel(accel: str, num_prims: int) -> str:
     if accel != "auto":
         return accel
     return "cluster" if num_prims >= K_AUTO_ACCEL_PRIMS else "tensor"
+
+
+def route_accel(accel: str, num_prims: int, device) -> str:
+    """The route a scene of ``num_prims`` on ``device`` takes: on a CUDA
+    device "auto" below K_AUTO_ACCEL_PRIMS is "pallas" (the sweep kernel,
+    one launch a query, where the tensor route is a matrix product and
+    its torch epilogue); everywhere else :func:`resolve_accel`'s answer,
+    the reference's rule, so the CPU keeps "tensor"."""
+    route = resolve_accel(accel, num_prims)
+    if route == "tensor" and accel == "auto" \
+            and torch.device(device).type == "cuda":
+        return "pallas"
+    return route
 
 
 @dataclasses.dataclass(frozen=True)

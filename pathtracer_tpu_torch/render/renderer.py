@@ -11,11 +11,13 @@ sample)``, ``fold_in(·, first pixel of the chunk)``, ``split(·, 4)`` into
 (pixel jitter, trace, lens, time) keys, and per bounce ``fold_in(trace key,
 depth)`` keyed again by ray id (``core/random``).
 
-Closest-hit routes (``cfg.accel``, "auto" by scene size): "cluster" (the
-march kernel, or with ``PT_CLUSTER_STRATEGY=rounds`` the window kernel),
-"pallas" (the dense sweep kernel), "tensor" (dense float32 matrix products,
-the "auto" choice below K_AUTO_ACCEL_PRIMS prims), "bvh" (the LBVH and
-the stackless traversal kernel, a correctness cross-check) and "brute".
+Closest-hit routes (``cfg.accel``; "auto" by scene size and device,
+``config.route_accel``): "cluster" (the march kernel, or with
+``PT_CLUSTER_STRATEGY=rounds`` the window kernel; "auto" at or above
+K_AUTO_ACCEL_PRIMS prims), "pallas" (the dense sweep kernel; "auto" below
+it on a CUDA device), "tensor" (dense float32 matrix products; "auto"
+below it elsewhere, as in the reference), "bvh" (the LBVH and the
+stackless traversal kernel, a correctness cross-check) and "brute".
 Every route carries a shadow query for NEE. ``stratify`` jitters sample s
 inside stratum (s mod m^2) of an m x m sub-pixel grid, m the
 largest integer with m^2 dividing ``cfg.spp``; ``sampler="sobol"`` takes
@@ -116,7 +118,7 @@ def make_query(scene: Scene, cfg: RenderConfig) -> Query:
     ``scene`` itself, or on the cluster route its rows in cluster order
     (``ClusterTables.scene``), so gradients reach the caller's tensors.
     The "bvh" route builds the scene's LBVH here."""
-    accel = config_mod.resolve_accel(cfg.accel, scene.num_prims)
+    accel = config_mod.route_accel(cfg.accel, scene.num_prims, scene.device)
     if accel == "cluster":
         K, kw = cluster_options()
         ct = build_cluster_tables(scene, K=K)

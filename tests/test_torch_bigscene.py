@@ -32,7 +32,7 @@ from pathtracer_tpu_torch.ops import cluster_sweep as tsweep
 from pathtracer_tpu_torch.ops import clusters as tclusters
 from pathtracer_tpu_torch.render import renderer as trenderer
 from pathtracer_tpu_torch.scene import bunny as tbunny
-from pathtracer_tpu_torch.tools import bench_prim_scaling
+from pathtracer_tpu_torch.tools import bench_dense_routes, bench_prim_scaling
 
 torch.set_num_threads(1)
 
@@ -270,3 +270,22 @@ def test_scaling_tool_on_the_cpu():
     assert "N=300" in text and "dense (K2)" in text and "tensor" in text
     assert "(flat, sup 4)" in text and "(cull2, sup 4)" in text, text
     assert text.count("valid-agree 1.0000") == 4, text
+
+
+def test_dense_routes_tool_on_the_cpu():
+    """The dense-routes tool's CPU run on cornell-full: the camera, bounce
+    and shadow queries of a 16x16 one-chunk render, each through both
+    routes, host times only."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = bench_dense_routes.main(
+            ["--device", "cpu", "--scenes", "cornell", "--rays", "256",
+             "--iters", "1"])
+    text = out.getvalue()
+    assert rc == 0, text
+    lines = [ln for ln in text.splitlines() if ln.startswith("cornell")]
+    assert [ln.split(") ")[1].split(" (")[0] for ln in lines] == [
+        "camera", "bounce", "shadow"], text
+    assert all("K2 host" in ln and "tensor host" in ln and "device" not in ln
+               for ln in lines), text
+    assert "(t_min 1e-07)" in lines[2], text

@@ -327,6 +327,52 @@ def test_small_cornell_render_matches_cpu(gpu):
     assert (diff <= 1e-4).mean() >= 0.99 and diff.mean() <= 1e-3
 
 
+def _small_auto_case(name, dev):
+    """(scene, camera, config on "auto") of a small render of a scene
+    under the auto crossover: the triangle world (601 prims, sky) or
+    cornell-full (36 prims, NEE, strata, textures)."""
+    if name == "triangle":
+        scene, cam = get_world("triangle", device=dev)
+        return scene, cam, RenderConfig(width=64, height=32, spp=2,
+                                        max_depth=4, ray_chunk=1024,
+                                        scene="triangle", seed=4)
+    scene, cam, cfg = get_preset("cornell-full", device=dev)
+    return scene, cam, cfg.replace(width=32, height=32, spp=4, max_depth=3,
+                                   ray_chunk=1024, seed=3)
+
+
+@pytest.mark.parametrize("name", ["triangle", "cornell-full"])
+def test_auto_takes_the_sweep_kernel_below_the_crossover(gpu, name):
+    """On the card "auto" below K_AUTO_ACCEL_PRIMS is the sweep kernel: the
+    image and executed counts of the explicit "pallas" render, bit for
+    bit; one launch per executed closest-hit or shadow query; no matrix
+    product (the tensor route's cuBLAS gemm) anywhere in the render."""
+    from torch.profiler import ProfilerActivity, profile
+    scene, cam, cfg = _small_auto_case(name, gpu)
+    assert cfg.accel == "auto"
+    pallas_sweep.SWEEP_LAUNCHES = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        img, stats = make_renderer(cfg, gpu, with_stats=True)(scene, cam)
+        torch.cuda.synchronize()
+    launches = pallas_sweep.SWEEP_LAUNCHES
+    ref, ref_stats = make_renderer(cfg.replace(accel="pallas"), gpu,
+                                   with_stats=True)(scene, cam)
+    assert torch.isfinite(img).all() and img.mean() > 0.05
+    assert torch.equal(img, ref) and stats == ref_stats
+    assert (stats[1] > 0) == (name == "cornell-full")
+    assert launches > 0 and launches * cfg.ray_chunk == stats[0] + stats[1]
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::matmul", "aten::mm", "aten::bmm"}, ops
+    kernels = {e.key for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0.0) > 0.0}
+    # the profiler now and then records no device activity at all; where
+    # it recorded some, the sweep kernel is there and no gemm is
+    if kernels:
+        assert any("dense_sweep_kernel" in k for k in kernels), kernels
+        assert not any("gemm" in k.lower() for k in kernels), kernels
+
+
 def _window_args(ct, o, d, kind, ray_tile=128):
     """Arguments of ``window_sweep`` for one launch kind of the rounds
     strategy over the wavefront (o, d), K=128 tables."""

@@ -123,6 +123,25 @@ def test_resolve_accel_matches(accel, n):
     assert tconfig.resolve_accel(accel, n) == jconfig.resolve_accel(accel, n)
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+@pytest.mark.parametrize("accel", ["auto", "cluster", "tensor", "pallas",
+                                   "bvh", "brute"])
+@pytest.mark.parametrize("n", [3, 36, 601, 1023, 1024, 3619])
+def test_route_accel_on_each_device(device, accel, n):
+    """The port's step: "auto" on a CUDA device takes the sweep kernel below
+    the crossover and the march at or above it; on the CPU it is the
+    reference's rule; an explicit accel passes through on every device."""
+    got = tconfig.route_accel(accel, n, torch.device(device))
+    assert got == tconfig.route_accel(accel, n, device)
+    if accel != "auto":
+        assert got == accel
+    elif device == "cpu":
+        assert got == jconfig.resolve_accel(accel, n)
+    else:
+        assert got == ("pallas" if n < tconfig.K_AUTO_ACCEL_PRIMS
+                       else "cluster")
+
+
 def test_render_config_matches():
     t, j = tconfig.RenderConfig(), jconfig.RenderConfig()
     assert t.to_json() == j.to_json()
