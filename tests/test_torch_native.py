@@ -1,20 +1,26 @@
 """The port's native host library (``pathtracer_tpu_torch/native``): the
 PNG encoder against the reference's and the plain twin, byte for byte; the
 build (hashed name, atomic under concurrent builds, errors carry the
-compiler's output, no quiet fallback); and every mesh load and image write
-of the port's entry points going through it.
+compiler's output, no quiet fallback); every mesh load and image write
+of the port's entry points going through it; and the root ``conftest.py``
+hook that builds the reference's library before the test workers start.
 
 The OBJ parser's parity with the reference is ``tests/test_torch_obj.py``.
 """
 import ctypes
+import importlib.util
 import os
+import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 
 from pathtracer_tpu.io import png as jpng
+from pathtracer_tpu.native import bindings as jbindings
+from pathtracer_tpu.native import build as jbuild
 from pathtracer_tpu_torch import __main__ as tcli
 from pathtracer_tpu_torch import presets as tpresets
 from pathtracer_tpu_torch.io import obj as tobj
@@ -161,3 +167,53 @@ def test_cli_image_goes_through_the_library(tmp_path, native_calls):
                       "--device", "cpu", "-o", str(out)]) == 0
     assert native_calls["write_png"] == 1
     assert tpng.read_png(str(out)).shape == (4, 8, 4)
+
+
+def _root_conftest():
+    """The root ``conftest.py``, loaded by its path: ``import conftest``
+    would be ambiguous beside ``tests/conftest.py``."""
+    spec = importlib.util.spec_from_file_location(
+        "_root_conftest", os.path.join(ROOT, "conftest.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def reference_builds(monkeypatch):
+    """Calls of the reference's ``build``, which only counts them."""
+    calls = []
+    monkeypatch.setattr(jbuild, "build", lambda **kw: calls.append(kw))
+    return calls
+
+
+def test_prebuild_hook_skips_workers(reference_builds):
+    worker = types.SimpleNamespace(workerinput={"workerid": "gw0"})
+    _root_conftest().pytest_configure(worker)
+    assert reference_builds == []
+
+
+def test_prebuild_hook_builds_once_in_the_controller(reference_builds):
+    _root_conftest().pytest_configure(types.SimpleNamespace())
+    assert reference_builds == [{"quiet": True}]
+
+
+@pytest.mark.parametrize("error", [
+    FileNotFoundError("g++"),                  # no compiler
+    subprocess.CalledProcessError(1, ["g++"]),  # no zlib, or g++ fails
+])
+def test_prebuild_hook_swallows_a_failed_build(error, monkeypatch):
+    def fail(**kw):
+        raise error
+    monkeypatch.setattr(jbuild, "build", fail)
+    _root_conftest().pytest_configure(types.SimpleNamespace())
+
+
+def test_reference_library_loads():
+    """With a compiler on the host, the reference's library loads in every
+    test process: the 20 tests of ``test_torch_obj.py`` that compare with
+    it must run, not skip."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host: the reference's library cannot "
+                    "be built")
+    assert jbindings.available()
