@@ -38,7 +38,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    800x450 in caller order), timed beside its twin with the state
    restored before each call, with its device time, the twin's aten ops
    and the bytes bound, and its launches on a 1-spp image of each cell's
-   shape.
+   shape; the NEE pair (``shade_nee``, ``shade_nee_finish``) likewise on
+   a 16,384-lane chunk of the Cornell cell's scene (cornell-full at
+   256x256 through the dense sweep), its bounce around the route's
+   shadow query bit-equal to the twins', and each kernel's launches on a
+   1-spp Cornell image at the cell's shape (one each a bounce, and none
+   of ``shade_bounce``).
    Every kernel must agree with its twin to the bit. On every path of the
    later phases the draws kernel must launch, counted from that path's own
    run, and the draw sets it recorded there (the first and last of each
@@ -202,8 +207,11 @@ which replaces no Pallas kernel, launches on 8c''s bench-shape bunny,
 ``path_launches`` on each "bvh" render of 8c and 8c', 8g's viewer
 session, 9a's bench and 9e's dry run, and the times of the bunny's camera
 wavefront; for ``shade_bounce``, which replaces no Pallas kernel,
-``path_launches`` on phase 3e's two images and the times of the bunny's
-chunk), error, times and bound; the last line is
+``path_launches`` on phase 3e's three images (0 on the Cornell one,
+whose bounces run the NEE pair) and the times of the bunny's chunk; for
+``shade_nee`` and ``shade_nee_finish``, each one's own launches on phase
+3e's Cornell image and the times of the Cornell chunk), error,
+times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --bench [DIR]
@@ -2183,13 +2191,144 @@ def shade_chunk(dev, cell: str):
     return args
 
 
+def nee_chunk(dev):
+    """The NEE pair's arguments on a 16,384-lane chunk of camera rays of
+    the Cornell cell's scene (the preset cornell-full, 256x256, through the
+    route ``auto`` takes there, the dense sweep, in caller order) after the
+    chunk's closest-hit query, as the integrator's first bounce holds
+    them, and the route."""
+    import torch
+    from pathtracer_tpu_torch.core import random as prng
+    from pathtracer_tpu_torch.ops import shade, uniforms
+    from pathtracer_tpu_torch.presets import get_preset
+    from pathtracer_tpu_torch.render.renderer import make_query
+    scene, cam, cfg = get_preset("cornell-full", device=dev)
+    query = make_query(scene, cfg.replace(ray_chunk=SHADE_LANES))
+    n = SHADE_LANES
+    o, d = camera_wavefront(dev, cam, n, 0)
+    idx, _, hit = query.closest(o, d)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    rid = torch.arange(n, dtype=torch.int32, device=dev)
+    key = (0, 1)
+    args = dict(
+        tables=shade.shade_tables(query.scene, nee=True), idx=idx,
+        hit_valid=hit,
+        o=o, d=d,
+        atten=torch.ones((n, 3), dtype=torch.float32, device=dev).unbind(1),
+        emitted=torch.zeros((n, 3), dtype=torch.float32,
+                            device=dev).unbind(1),
+        alive=alive, absorbed=~alive, spec_prev=alive.clone(),
+        prev_pdf=torch.zeros(n, dtype=torch.float32, device=dev),
+        u=uniforms.uniform_by_ray(key, rid, 6),
+        u_nee=uniforms.uniform_by_ray(prng.fold_in(key, 1), rid, 3),
+        u_rr=None, t_min=cfg.t_min,
+        handles_dead=getattr(query.closest, "handles_dead", False),
+        scratch=shade.nee_scratch(n, dev))
+    return args, query.closest
+
+
+def nee_kernels(dev, card, reps: int = 20):
+    """Phase 3e's NEE pair against its twins on a chunk of the Cornell
+    cell's scene (:func:`nee_chunk`): the bounce through the first kernel,
+    the route's shadow query and the second, bit for bit against the
+    twins' bounce around the same query, then each kernel timed beside its
+    twin and its bound, with the state restored, untimed, before every
+    call. Returns (first kernel's ms, its twin's, bound ms, bound by) and
+    the second's."""
+    import torch
+    from pathtracer_tpu_torch.ops import shade
+    from pathtracer_tpu_torch.render import integrator
+    args, closest = nee_chunk(dev)
+    sc = args["scratch"]
+    state = [args[k] for k in ("o", "d", "alive", "absorbed", "spec_prev",
+                               "prev_pdf")]
+    state += list(args["atten"]) + list(args["emitted"])
+    saved = [x.clone() for x in state]
+
+    def restore():
+        for x, y in zip(state, saved):
+            x.copy_(y)
+
+    def bounce(first, finish):
+        restore()
+        first(**args)
+        _, t_sh, valid = closest.query_shadow(
+            sc.origin, sc.seg, sc.take if args["handles_dead"] else None)
+        finish(t_sh, valid, sc.cand, args["emitted"], args["t_min"])
+        torch.cuda.synchronize()
+        return [x.clone() for x in state + list(sc)], (t_sh, valid)
+
+    got, _ = bounce(shade.shade_nee, shade.shade_nee_finish)
+    ref, answer = bounce(integrator.shade_nee_reference,
+                         shade.shade_nee_finish_reference)
+    if not all(torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))
+               for a, b in zip(got, ref)):
+        fail("shade_nee cornell chunk: the kernels and their twins are not "
+             "bit-equal")
+    finish_args = (*answer, sc.cand, args["emitted"], args["t_min"])
+
+    def timed(fn, call):
+        times = []
+        for _ in range(reps + 1):
+            restore()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call(fn)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times[1:])
+
+    def first(fn):
+        return fn(**args)
+
+    def second(fn):
+        return fn(*finish_args)
+
+    out = []
+    t = args["tables"]
+    for name, kernel, twin, call, lanes in (
+            ("shade_nee", shade.shade_nee, integrator.shade_nee_reference,
+             first,
+             # inputs read, state and scratch written, tables read once
+             nbytes(args["idx"], args["hit_valid"], args["u"],
+                    args["u_nee"], *state)
+             + nbytes(args["o"], args["d"], args["alive"], args["absorbed"],
+                      args["spec_prev"], args["prev_pdf"], *args["atten"],
+                      *args["emitted"], *sc)
+             + nbytes(t.prims, t.mats, t.lights, t.scene.textures)),
+            ("shade_nee_finish", shade.shade_nee_finish,
+             shade.shade_nee_finish_reference, second,
+             nbytes(*answer, sc.cand, *args["emitted"], *args["emitted"]))):
+        restore()
+        with op_counter() as ops:
+            call(twin)
+        ms = timed(kernel, call)
+        plain_ms = timed(twin, call)
+        dev_ms = device_ms(lambda: (restore(), call(kernel)), torch, reps,
+                           f"{name}_kernel")
+        b_ms, b_by = bound(lanes, 0.0)
+        print(f"{name} cornell chunk ({SHADE_LANES} lanes, "
+              f"{int(sc.take.sum())} light samples), bit-equal to the twin "
+              f"around the route's shadow query: kernel {ms:.4f} ms, "
+              f"{ms_text(dev_ms)}; plain twin {plain_ms:.4f} ms ({ops.n} "
+              f"aten ops dispatched), bound {b_ms * 1e3:.4f} us ({b_by}, "
+              f"{lanes / 1e6:.4f} MB) [{card}]", flush=True)
+        out.append((ms, plain_ms, b_ms, b_by))
+    return out
+
+
 def shade_kernel(dev, card, reps: int = 20):
     """Phase 3e: the shading kernel against its twin on a 16,384-lane chunk
     of each benchmark cell's scene (:func:`shade_chunk`), bit for bit, each
     timed beside its twin and its bound, with the aten ops the twin
-    dispatches; the state is restored, untimed, before every call. Returns
-    the kernels-line numbers of the bunny's chunk and the cells' launches
-    of one 1-spp image at their shapes."""
+    dispatches; the state is restored, untimed, before every call; the NEE
+    pair on the Cornell cell's (:func:`nee_kernels`). Returns the
+    kernels-line numbers of the bunny's chunk and of the NEE pair, the
+    shading kernel's launches of one 1-spp image at each cell's shape, and
+    each NEE kernel's on Cornell's."""
     import torch
     from pathtracer_tpu_torch.config import RenderConfig
     from pathtracer_tpu_torch.ops import shade
@@ -2259,6 +2398,7 @@ def shade_kernel(dev, card, reps: int = 20):
               f"[{card}]", flush=True)
         if cell == "bunny":
             main = (ms, plain_ms, b_ms, b_by)
+    nee_main = nee_kernels(dev, card, reps)
     path_launches = {}
     for cell, cfg in (
             ("bunny 640x360 1 spp", RenderConfig(
@@ -2273,7 +2413,23 @@ def shade_kernel(dev, card, reps: int = 20):
         torch.cuda.synchronize()
         path_launches[cell] = shade.SHADE_LAUNCHES
         print(f"shade_bounce launches, {cell}: {shade.SHADE_LAUNCHES}")
-    return main, path_launches
+    from pathtracer_tpu_torch.presets import get_preset
+    scene, cam, cfg = get_preset("cornell-full", device=dev)
+    cell = "cornell 256x256 1 spp"
+    shade.SHADE_LAUNCHES = shade.SHADE_NEE_LAUNCHES = 0
+    shade.SHADE_NEE_FINISH_LAUNCHES = 0
+    make_renderer(cfg.replace(spp=1, ray_chunk=SHADE_LANES), dev)(scene, cam)
+    torch.cuda.synchronize()
+    path_launches[cell] = shade.SHADE_LAUNCHES
+    nee_launches = {"shade_nee": shade.SHADE_NEE_LAUNCHES,
+                    "shade_nee_finish": shade.SHADE_NEE_FINISH_LAUNCHES}
+    if shade.SHADE_LAUNCHES:
+        fail(f"shade_bounce launched {shade.SHADE_LAUNCHES} times under NEE")
+    if not nee_launches["shade_nee"] or len(set(nee_launches.values())) > 1:
+        fail(f"the NEE pair's launches differ, {cell}: {nee_launches}")
+    for name, n in nee_launches.items():
+        print(f"{name} launches, {cell}: {n}")
+    return main, nee_main, path_launches, nee_launches
 
 
 def draws_on_paths(run_cli, cli_draws, bunny_argv, out, card, cli, torch):
@@ -2731,7 +2887,7 @@ def main() -> int:
     # 3e. the shading kernel against its twin, bit for bit, on a chunk of
     # each benchmark cell's scene, and its launches on their images
     t3e = time.perf_counter()
-    shade_main, shade_paths = shade_kernel(dev, card)
+    shade_main, nee_main, shade_paths, nee_paths = shade_kernel(dev, card)
     print(f"phase 3e took {time.perf_counter() - t3e:.1f} s")
 
     # 4. the main paths through the CLI's code path; each render's draws
@@ -2970,7 +3126,16 @@ def main() -> int:
         "path_launches": shade_paths, "max_abs_err": 0.0,
         "ms": shade_main[0], "plain_ms": shade_main[1],
         "bound_ms": shade_main[2], "bound_by": shade_main[3],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda",
+        "source": "pathtracer_tpu_torch/csrc/shade_bounce.cu",
+        "replaces": None,
+        "launches": nee_paths[name],
+        "path_launches": {"cornell 256x256 1 spp": nee_paths[name]},
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        for name, (ms, plain_ms, b_ms, b_by) in zip(
+            ("shade_nee", "shade_nee_finish"), nee_main)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

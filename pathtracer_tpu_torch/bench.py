@@ -204,7 +204,9 @@ def launch_counts() -> dict:
             "window_sweep": cluster_sweep.WINDOW_LAUNCHES,
             "ray_uniforms": uniforms.UNIFORMS_LAUNCHES,
             "bvh_traverse": traversal.TRAVERSE_LAUNCHES,
-            "shade_bounce": shade.SHADE_LAUNCHES}
+            "shade_bounce": shade.SHADE_LAUNCHES,
+            "shade_nee": shade.SHADE_NEE_LAUNCHES,
+            "shade_nee_finish": shade.SHADE_NEE_FINISH_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -214,7 +216,8 @@ def reset_launch_counts() -> None:
     pallas_sweep.SWEEP_LAUNCHES = 0
     uniforms.UNIFORMS_LAUNCHES = 0
     traversal.TRAVERSE_LAUNCHES = 0
-    shade.SHADE_LAUNCHES = 0
+    shade.SHADE_LAUNCHES = shade.SHADE_NEE_LAUNCHES = 0
+    shade.SHADE_NEE_FINISH_LAUNCHES = 0
 
 
 def env_knobs() -> dict:

@@ -21,17 +21,22 @@ A bounce shades (hit record, scatter, state update) in one call of
 ``ops/shade.shade_bounce``, one launch of the shading kernel on the card,
 which writes the state in place; in the sorted wavefront that state stays
 in the march's payload layout, three planes and the flags word, between
-bounces. Under NEE or ``differentiable`` the bounce runs the same step as
-torch ops (``ops/shade``'s parts), with NEE's light sample between the
-scatter and the advance.
+bounces. Under NEE the shadow query comes between the light sample and
+the emitted sum, so a bounce shades in two steps around it:
+:func:`nee_bounce` (all that does not wait on the query, the next ray
+included) and ``ops/shade.nee_finish`` (the light sample's share of the
+emitted sum). On the card these are the launches ``ops/shade.shade_nee``
+and ``ops/shade.shade_nee_finish``; elsewhere the same two steps in place
+(:func:`shade_nee_reference`, ``ops/shade.shade_nee_finish_reference``).
+Under ``differentiable`` the bounce runs the steps as torch ops
+(``ops/shade``'s parts, :func:`nee_bounce`), which autograd needs.
 
 Each trip of the loop is a ``pt.bounce`` span, each closest-hit and
 shadow query a ``pt.query`` and the loop's test a ``pt.wait``
 (``utils/metrics.span``, recorded only while a profiler records). Under
-NEE a bounce holds two ``pt.light`` spans: the balance-heuristic weight
-of a BSDF-sampled emitter hit, and the light sample (its draw, the
-shadow ``pt.query``, the direct-lighting sum and the next bounce's pdf).
-The executed-query counts that depend on the data stay on the device.
+NEE a bounce holds two ``pt.light`` spans: the light sample's draw, and
+its shadow ``pt.query`` with the direct-lighting sum after it. The
+executed-query counts that depend on the data stay on the device.
 
 With ``nee`` (scenes with emissive prims) every diffuse or fuzzy-metal hit
 also samples one light point and casts a shadow ray (``render/lights``);
@@ -55,6 +60,8 @@ fixed-trip ``lax.scan`` there because reverse-mode AD cannot cross a
 after the last live lane would do nothing, so the early exit stays.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -93,12 +100,115 @@ def _any_alive(alive) -> bool:
         return bool(alive.any())
 
 
-def _fused_shading(differentiable: bool, use_nee: bool) -> bool:
-    """Whether each bounce shades in one ``ops/shade.shade_bounce`` call
-    (the kernel on the card, its twin on the CPU): everywhere but under
-    autograd, which needs the torch composition, and NEE, whose shadow
-    query comes between the scatter and the advance."""
-    return not differentiable and not use_nee
+def _fused_shading(differentiable: bool) -> bool:
+    """Whether each bounce shades through the shading kernels' wrappers
+    (``ops/shade.shade_bounce``, or under NEE ``shade_nee`` and
+    ``shade_nee_finish``; the kernels on the card, their twins on the CPU):
+    everywhere but under autograd, which needs the torch composition."""
+    return not differentiable
+
+
+def nee_state(rec, sc, step, take_direct, spec_prev, prev_pdf):
+    """The next bounce's NEE state where the path goes on: (spec_prev,
+    prev_pdf). ``spec_prev``: the direction came from a delta lobe (fuzzy
+    metal has a finite lobe and weighs emissive hits like diffuse), so an
+    emitter it hits keeps the full weight; ``prev_pdf``: its solid-angle
+    pdf, where the lane also took a light sample."""
+    spec_prev = torch.where(step, sc.is_specular & ~sc.is_glossy, spec_prev)
+    w_new = vec.safe_normalize(sc.direction)
+    new_cos = torch.clamp(vec.dot(rec.normal, w_new), min=0.0)
+    p_new = torch.where(sc.is_glossy,
+                        lights.metal_lobe_pdf(w_new, sc.glossy_r, sc.fuzz),
+                        new_cos * vec.PI_INV)
+    return spec_prev, torch.where(step & take_direct, p_new, prev_pdf)
+
+
+class NeeBounce(NamedTuple):
+    """An NEE bounce up to its shadow query (:func:`nee_bounce`): the
+    path's next state, and what crosses the query (the fields of
+    ``ops/shade.NeeScratch``)."""
+    o: torch.Tensor          # (N, 3)
+    d: torch.Tensor          # (N, 3)
+    atten: torch.Tensor      # (N, 3)
+    alive: torch.Tensor      # (N,) bool
+    absorbed: torch.Tensor   # (N,) bool
+    spec_prev: torch.Tensor  # (N,) bool
+    prev_pdf: torch.Tensor   # (N,) f32
+    emitted: torch.Tensor    # (N, 3): the sum before the light sample's
+    origin: torch.Tensor     # (N, 3): the shadow rays
+    seg: torch.Tensor        # (N, 3)
+    cand: torch.Tensor       # (N, 3): each light sample's share of the
+    #                          emitted sum, should nothing occlude it
+    take: torch.Tensor       # (N,) bool: the lanes that take a light sample
+
+
+def nee_bounce(scene: Scene, rec, sc, o, d, atten, emitted, alive,
+               hit_valid, absorbed, spec_prev, prev_pdf, u_nee, u_rr,
+               t_min: float, handles_dead: bool) -> NeeBounce:
+    """An NEE bounce of the hit record ``rec`` and scatter ``sc``
+    (``ops/shade.surface``) up to its shadow query, as torch ops: the
+    balance-heuristic weight of a BSDF-sampled emitter hit, emission and
+    absorption, Russian roulette where ``u_rr`` is given, one light sample
+    a diffuse or glossy hit from ``u_nee`` (N, 3) with its shadow ray (the
+    segment zero off the sampling lanes where the route ``handles_dead``),
+    the next bounce's NEE state and the next ray. The emitted sum still
+    lacks the light samples: ``ops/shade.nee_finish`` adds them once the
+    query has answered."""
+    emit_w = torch.where(spec_prev, 1.0, lights.bsdf_hit_light_weight(
+        scene, rec, d, prev_pdf))
+    active, step, emitted, absorbed_n = shade.absorb(
+        sc, alive, hit_valid, atten, emitted, absorbed, emit_w)
+    killed, rr_scale = (None, None) if u_rr is None else shade.roulette(
+        step, u_rr)
+    # every diffuse or glossy hit takes a light sample, whether or not its
+    # own BSDF sample survives (sc.ok)
+    take = active & ~sc.is_emissive & (sc.is_diffuse | sc.is_glossy)
+    light = lights.sample_lights(scene, u_nee)
+    origin, seg = lights.shadow_segment(rec.p, rec.normal, light.point,
+                                        t_min)
+    direct, _ = lights.direct_lighting(seg, rec.normal, sc.attenuation,
+                                       light,
+                                       (sc.is_glossy, sc.glossy_r, sc.fuzz))
+    if handles_dead:
+        seg = torch.where(take[:, None], seg, 0.0)
+    cand = torch.where(take[:, None], atten * direct, 0.0)
+    spec_prev, prev_pdf = nee_state(rec, sc, step, take, spec_prev,
+                                    prev_pdf)
+    o, d, atten, alive, absorbed_n = shade.advance(
+        rec, sc, step, o, d, atten, alive, hit_valid, absorbed_n, killed,
+        rr_scale)
+    return NeeBounce(o, d, atten, alive, absorbed_n, spec_prev, prev_pdf,
+                     emitted, origin, seg, cand, take)
+
+
+def shade_nee_reference(tables: shade.ShadeTables, idx, hit_valid, o, d,
+                        atten, emitted, alive, absorbed, spec_prev, prev_pdf,
+                        u, u_nee, u_rr, t_min, handles_dead: bool,
+                        scratch: shade.NeeScratch) -> None:
+    """The plain twin of ``ops/shade.shade_nee``, with its arguments:
+    ``ops/shade.surface`` and :func:`nee_bounce`, their results written
+    into the state and ``scratch`` in place."""
+    flags = absorbed if absorbed.dtype == torch.int32 else None
+    if flags is not None:
+        rid, absorbed, spec_prev = shade.decode_flags(flags)
+    rec, sc = shade.surface(tables, idx, o, d, hit_valid, u, t_min)
+    x = nee_bounce(tables.scene, rec, sc, o, d, torch.stack(atten, dim=1),
+                   torch.stack(emitted, dim=1), alive, hit_valid, absorbed,
+                   spec_prev, prev_pdf, u_nee, u_rr, t_min, handles_dead)
+    o.copy_(x.o)
+    d.copy_(x.d)
+    alive.copy_(x.alive)
+    prev_pdf.copy_(x.prev_pdf)
+    for plane, col in zip(atten + emitted,
+                          x.atten.unbind(1) + x.emitted.unbind(1)):
+        plane.copy_(col)
+    if flags is not None:
+        flags.copy_(shade.encode_flags(rid, x.absorbed, x.spec_prev))
+    else:
+        absorbed.copy_(x.absorbed)
+        spec_prev.copy_(x.spec_prev)
+    for field, value in zip(scratch, (x.origin, x.seg, x.cand, x.take)):
+        field.copy_(value)
 
 
 def trace(scene: Scene, origin, direction, key, max_depth: int,
@@ -125,10 +235,9 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     n_rays = origin.shape[0]
     dev = origin.device
     use_nee = nee and scene.num_lights > 0
-    # one kernel launch a bounce where nothing else happens between the
-    # scatter and the advance; NEE's shadow query and autograd need the
-    # torch composition
-    fused = _fused_shading(differentiable, use_nee)
+    # one kernel launch a bounce, two around the shadow query under NEE;
+    # autograd needs the torch composition
+    fused = _fused_shading(differentiable)
     handles_dead = getattr(closest_hit_fn, "handles_dead", False)
     query_sorted = (None if differentiable
                     else getattr(closest_hit_fn, "query_sorted", None))
@@ -136,9 +245,15 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
     sorted_mode = query_sorted is not None and n_rays % tile == 0
     # the kernel takes no tensor that requires grad
     tables = shade.shade_tables(Scene(*(x.detach() for x in scene))
-                                if fused else scene)
+                                if fused else scene, nee=fused and use_nee)
     # emitted radiance stays zero without emissive prims: skip carrying it
     carry_emit = scene.num_lights > 0
+    if fused and use_nee:
+        # what crosses each NEE bounce's shadow query, and the kernel or,
+        # off the card, its twin
+        scratch = shade.nee_scratch(n_rays, dev)
+        shade_nee = (shade.shade_nee if dev.type == "cuda"
+                     else shade_nee_reference)
 
     o, d = origin, direction
     if fused:
@@ -160,6 +275,21 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
         else None
     counts = [0.0, 0.0, 0.0]
     device_counts = []
+
+    def shadow_query(x, finish):
+        """Count an NEE bounce's shadow rays (``x`` holds them, as
+        ``ops/shade.NeeScratch`` does), query them and hand the answer
+        (t, valid) to ``finish``; returns what ``finish`` does."""
+        if handles_dead:
+            device_counts.append((1, x.take.sum()))
+        else:
+            counts[1] += n_rays
+        with metrics.span("pt.light", depth):
+            with metrics.span("pt.query", "shadow"):
+                _, t_sh, sh_valid = closest_hit_fn.query_shadow(
+                    x.origin.detach(), x.seg.detach(),
+                    x.take if handles_dead else None)
+            return finish(t_sh, sh_valid)
 
     depth = 0
     while depth < max_depth and _any_alive(alive):
@@ -203,7 +333,21 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                 # sees the bounce's own step
                 u_rr = uniforms.uniform_by_ray(prng.fold_in(bkey, 2), rid,
                                                1)[:, 0]
-            if fused:
+            if use_nee:
+                with metrics.span("pt.light", depth):
+                    u_nee = uniforms.uniform_by_ray(prng.fold_in(bkey, 1),
+                                                    rid, 3)
+            if fused and use_nee:
+                shade_nee(tables, idx, hit_valid, o, d, atten_p, emit_p,
+                          alive, flags if sorted_mode else absorbed,
+                          None if sorted_mode else spec_prev, prev_pdf,
+                          u_scatter, u_nee, u_rr, t_min, handles_dead,
+                          scratch)
+                shadow_query(scratch, lambda t_sh, sh_valid:
+                             shade.shade_nee_finish(t_sh, sh_valid,
+                                                    scratch.cand, emit_p,
+                                                    t_min))
+            elif fused:
                 shade.shade_bounce(tables, idx, hit_valid, o, d, atten_p,
                                    emit_p, alive,
                                    flags if sorted_mode else absorbed,
@@ -216,58 +360,24 @@ def trace(scene: Scene, origin, direction, key, max_depth: int,
                         emitted_acc = torch.stack(emit_p, dim=1)
                 rec, sc = shade.surface(tables, idx, o, d, hit_valid,
                                         u_scatter, t_min)
-                emit_w = None
                 if use_nee:
-                    with metrics.span("pt.light", depth):
-                        w_bsdf = lights.bsdf_hit_light_weight(scene, rec, d,
-                                                              prev_pdf)
-                        emit_w = torch.where(spec_prev, 1.0, w_bsdf)
-                active, step, emitted_acc, absorbed = shade.absorb(
-                    sc, alive, hit_valid, atten, emitted_acc, absorbed,
-                    emit_w)
-                killed = rr_scale = None
-                if u_rr is not None:
-                    killed, rr_scale = shade.roulette(step, u_rr)
-
-                if use_nee:
-                    with metrics.span("pt.light", depth):
-                        u_nee = uniforms.uniform_by_ray(
-                            prng.fold_in(bkey, 1), rid, 3)
-                        # every diffuse or glossy hit takes a light
-                        # sample, whether or not its own BSDF sample
-                        # survives (sc.ok)
-                        take_direct = (active & ~sc.is_emissive
-                                       & (sc.is_diffuse | sc.is_glossy))
-                        if handles_dead:
-                            device_counts.append((1, take_direct.sum()))
-                        else:
-                            counts[1] += n_rays
-                        direct, _ = lights.direct_lighting(
-                            scene, rec.p, rec.normal, sc.attenuation,
-                            closest_hit_fn, u_nee,
-                            (sc.is_glossy, sc.glossy_r, sc.fuzz),
-                            eps=t_min,
-                            active=take_direct if handles_dead else None)
-                        emitted_acc = emitted_acc + torch.where(
-                            take_direct[:, None], atten * direct, 0.0)
-                        # fuzzy metal has a finite lobe and weighs
-                        # emissive hits like diffuse; only delta lobes keep
-                        # the full emissive weight
-                        spec_prev = torch.where(
-                            step, sc.is_specular & ~sc.is_glossy, spec_prev)
-                        w_new = vec.safe_normalize(sc.direction)
-                        new_cos = torch.clamp(vec.dot(rec.normal, w_new),
-                                              min=0.0)
-                        p_new = torch.where(sc.is_glossy,
-                                            lights.metal_lobe_pdf(
-                                                w_new, sc.glossy_r, sc.fuzz),
-                                            new_cos * vec.PI_INV)
-                        prev_pdf = torch.where(step & take_direct, p_new,
-                                               prev_pdf)
-
-                o, d, atten, alive, absorbed = shade.advance(
-                    rec, sc, step, o, d, atten, alive, hit_valid, absorbed,
-                    killed, rr_scale)
+                    x = nee_bounce(scene, rec, sc, o, d, atten, emitted_acc,
+                                   alive, hit_valid, absorbed, spec_prev,
+                                   prev_pdf, u_nee, u_rr, t_min,
+                                   handles_dead)
+                    o, d, atten, alive, absorbed, spec_prev, prev_pdf = x[:7]
+                    emitted_acc = shadow_query(
+                        x, lambda t_sh, sh_valid: shade.nee_finish(
+                            t_sh, sh_valid, x.cand, x.emitted, t_min))
+                else:
+                    _, step, emitted_acc, absorbed = shade.absorb(
+                        sc, alive, hit_valid, atten, emitted_acc, absorbed)
+                    killed = rr_scale = None
+                    if u_rr is not None:
+                        killed, rr_scale = shade.roulette(step, u_rr)
+                    o, d, atten, alive, absorbed = shade.advance(
+                        rec, sc, step, o, d, atten, alive, hit_valid,
+                        absorbed, killed, rr_scale)
                 if sorted_mode:
                     atten_p = atten.unbind(1)
                     flags = shade.encode_flags(rid, absorbed, spec_prev)

@@ -4,24 +4,35 @@ Sampling is uniform over (light choice x surface area); the returned pdf is
 with respect to area and includes the 1/L light-choice factor. Triangle
 emitters are double-sided. A diffuse or fuzzy-metal hit samples one light
 point and casts one shadow ray; the light sample and the BSDF-sampled
-emissive hit are combined with the one-sample balance heuristic.
+emissive hit are combined with the one-sample balance heuristic. The
+shadow ray's query is the caller's: :func:`direct_lighting` gives what a
+light sample brings should nothing occlude it, and the integrator adds it
+where the query finds no occluder (``ops/shade.nee_finish``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from pathtracer_tpu_torch.core import sampling, vec
 from pathtracer_tpu_torch.scene.scene import PRIM_SPHERE, Scene
-from pathtracer_tpu_torch.utils import metrics
 
 FOUR_PI = 4.0 * vec.PI
 
 
-def sample_lights(scene: Scene, u):
+class LightSample(NamedTuple):
+    """One point on one light per ray (:func:`sample_lights`)."""
+    point: torch.Tensor   # (R, 3)
+    normal: torch.Tensor  # (R, 3)
+    emit: torch.Tensor    # (R, 3) the light's emitted radiance
+    pdf: torch.Tensor     # (R,) area pdf, with the 1/L light-choice factor
+
+
+def sample_lights(scene: Scene, u) -> LightSample:
     """One point on one light per ray. ``u`` (R, 3) in [0, 1): [0] the
-    light choice, [1:3] the surface sample. Returns (point (R, 3), normal
-    (R, 3), emitted (R, 3), pdf_area (R,)), the pdf including the 1/L
-    light-choice factor. Needs ``scene.num_lights > 0``."""
+    light choice, [1:3] the surface sample. Needs ``scene.num_lights >
+    0``."""
     num_lights = scene.num_lights
     lv = scene.light_idx.long()
     li = torch.clamp((u[:, 0] * num_lights).to(torch.int64), 0,
@@ -55,7 +66,7 @@ def sample_lights(scene: Scene, u):
     normal = torch.where(is_sphere[:, None], omega, tri_n)
     area = torch.where(is_sphere, area_sph, area_tri)
     pdf = 1.0 / (torch.clamp(area, min=1e-12) * num_lights)
-    return point, normal, emit, pdf
+    return LightSample(point, normal, emit, pdf)
 
 
 def metal_lobe_pdf(w_unit, r_unit, fuzz):
@@ -74,45 +85,41 @@ def metal_lobe_pdf(w_unit, r_unit, fuzz):
     return torch.where(inside, pdf, 0.0)
 
 
-def direct_lighting(scene: Scene, rec_p, rec_normal, albedo, closest_hit_fn,
-                    u, glossy, eps: float = 1e-3, active=None):
+def shadow_segment(rec_p, rec_normal, point, eps: float):
+    """The shadow ray from a hit to its light point: (origin, segment),
+    the origin ``eps`` off the surface along the normal, the segment
+    unnormalized, so the light sits at t == 1."""
+    origin = rec_p + eps * rec_normal
+    return origin, point - origin
+
+
+def direct_lighting(seg, rec_normal, albedo, light: LightSample, glossy):
     """One-sample NEE estimate of the direct radiance at diffuse / glossy
-    hits; returns (radiance (R, 3), ok (R,) bool).
+    hits, should nothing occlude the shadow ray's segment ``seg`` (R, 3)
+    (:func:`shadow_segment` to ``light.point``); returns (radiance (R, 3),
+    ok (R,) bool), the radiance 0 where not ok.
 
     L = w * albedo * p_lobe(w_l) * cos_l * emit / (dist^2 * pdf_area), with
     p_lobe cos/pi (lambertian) or :func:`metal_lobe_pdf` where ``glossy =
     (is_glossy, r_unit, fuzz)`` says so, and w the balance-heuristic weight
-    against BSDF sampling. The shadow ray starts ``eps`` off the surface
-    along the normal and runs along the unnormalized segment to the light
-    point, so the light sits at t == 1: a hit with t < 1 - eps occludes.
-    The segment goes to ``closest_hit_fn.query_shadow`` (near-zero t_min),
-    detached.
-    ``active`` (R,) bool: rays whose result is discarded query with
-    d == 0."""
-    point, n_l, emit, pdf = sample_lights(scene, u)
-    origin = rec_p + eps * rec_normal
-    seg = point - origin
+    against BSDF sampling. The caller queries the segment (near-zero
+    t_min, detached): a hit with t < 1 - eps occludes."""
     dist2 = vec.dot(seg, seg)
     inv_dist = 1.0 / torch.sqrt(torch.clamp(dist2, min=1e-12))
     cos_s = vec.dot(rec_normal, seg) * inv_dist
-    cos_l = torch.abs(vec.dot(n_l, seg)) * inv_dist  # double-sided emitter
-
-    seg_q = seg if active is None else torch.where(active[:, None], seg, 0.0)
-    with metrics.span("pt.query", "shadow"):
-        _, t_sh, sh_valid = closest_hit_fn.query_shadow(
-            origin.detach(), seg_q.detach(), active)
-    unoccluded = (~sh_valid) | (t_sh >= 1.0 - eps)
+    # double-sided emitter
+    cos_l = torch.abs(vec.dot(light.normal, seg)) * inv_dist
 
     is_glossy, r_unit, fuzz = glossy
     w_l = seg * inv_dist[:, None]
     p_lobe = torch.where(is_glossy, metal_lobe_pdf(w_l, r_unit, fuzz),
                          torch.clamp(cos_s, min=0.0) * vec.PI_INV)
-    geom = p_lobe * cos_l / (torch.clamp(dist2, min=1e-12) * pdf)
+    geom = p_lobe * cos_l / (torch.clamp(dist2, min=1e-12) * light.pdf)
     # balance heuristic in solid angle: p_light = pdf * dist^2 / cos_l
-    p_light = pdf * dist2 / torch.clamp(cos_l, min=1e-8)
-    radiance = (albedo * geom[:, None] * emit
+    p_light = light.pdf * dist2 / torch.clamp(cos_l, min=1e-8)
+    radiance = (albedo * geom[:, None] * light.emit
                 * (p_light / (p_light + p_lobe))[:, None])
-    ok = unoccluded & (cos_s > 0.0) & (cos_l > 0.0) & (p_lobe > 0.0)
+    ok = (cos_s > 0.0) & (cos_l > 0.0) & (p_lobe > 0.0)
     return torch.where(ok[:, None], radiance, 0.0), ok
 
 

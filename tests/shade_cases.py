@@ -1,7 +1,8 @@
-"""Inputs of one bounce's shading step (``ops/shade.shade_bounce``) for the
-shading tests: the CPU twin against the JAX package
-(``test_torch_shade.py``) and the kernel against the twin on the card
-(``test_torch_cuda.py``). Imports neither jax nor the JAX package.
+"""Inputs of one bounce's shading step (``ops/shade.shade_bounce``, and
+under NEE ``shade_nee``) for the shading tests: the CPU twin against the
+JAX package (``test_torch_shade.py``) and the kernels against their twins
+on the card (``test_torch_cuda.py``). Imports neither jax nor the JAX
+package.
 
 A case is a primitive kind and a material kind: a scene of a distant
 distractor sphere (row 0) and the target (row 1) with that material, a
@@ -9,7 +10,10 @@ wavefront aimed at the target from a spread of angles down to grazing
 (from inside the sphere, or from behind the triangle, for the dielectric's
 back face), with some dead lanes and some misses, the winners of a brute
 scan, the scatter and roulette uniforms and a path state, all made from
-numpy with a fixed seed.
+numpy with a fixed seed. An NEE case adds two emitters, a triangle and a
+sphere, far from the wavefront (the target is a third where it is the
+emissive case), and the NEE state: spec_prev, the last bounce's pdf and
+the light-sample uniforms.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ MATERIALS = ("lambertian", "textured", "metal", "metal_fuzz_below",
 N = 512
 T_MIN = 1e-3
 TRIANGLE = ((-2.0, -2.0, 0.0), (2.0, -2.0, 0.0), (0.0, 2.5, 0.0))
+# the NEE case's emitters, away from every ray of the wavefront
+LIGHT_TRIANGLE = ((-9.0, 6.0, 7.0), (-7.0, 6.0, 7.0), (-8.0, 6.5, 9.0))
+LIGHT_SPHERE = ((-9.0, -1.0, -9.0), 0.75)
 
 
 def _material(b: SceneBuilder, material: str) -> int:
@@ -75,11 +82,13 @@ def _rays(rng, prim: str, back: bool):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-def make_case(prim: str, material: str, rr: bool, seed: int = 0) -> dict:
+def make_case(prim: str, material: str, rr: bool, seed: int = 0,
+              nee: bool = False) -> dict:
     """The case's scene (a CPU ``Scene``) and its inputs as numpy arrays:
-    o, d, idx (int64), hit_valid, atten, emitted, alive, absorbed, flags
-    (the sorted payload's word of ray id, absorbed and spec_prev), u
-    (N, 6), u_rr ((N,) or None)."""
+    o, d, idx (int64), hit_valid, atten, emitted, alive, absorbed,
+    spec_prev, flags (the sorted payload's word of ray id, absorbed and
+    spec_prev), u (N, 6), u_rr ((N,) or None); with ``nee``, the scene's
+    emitters and prev_pdf (N,), u_nee (N, 3)."""
     rng = np.random.default_rng(
         [seed, PRIMS.index(prim), MATERIALS.index(material), int(rr)])
     b = SceneBuilder()
@@ -90,6 +99,10 @@ def make_case(prim: str, material: str, rr: bool, seed: int = 0) -> dict:
         b.add_sphere((0.0, 0.0, 0.0), 1.0, mat)
     else:
         b.add_triangle(*TRIANGLE, mat)
+    if nee:
+        lamp = b.add_emissive((5.0, 4.0, 3.0))
+        b.add_triangle(*LIGHT_TRIANGLE, lamp)
+        b.add_sphere(*LIGHT_SPHERE, b.add_emissive((2.0, 3.0, 4.0)))
     scene = b.build(device="cpu")
     o, d = _rays(rng, prim, material == "dielectric_back_tir")
     idx, _, hit_valid = intersect.brute_force_closest(
@@ -102,13 +115,21 @@ def make_case(prim: str, material: str, rr: bool, seed: int = 0) -> dict:
     spec_prev = rng.random(N) < 0.5
     flags = (rid | (absorbed.astype(np.int64) << shade.ABSORBED_BIT)
              | (spec_prev.astype(np.int64) << (shade.ABSORBED_BIT + 1)))
-    return dict(
+    case = dict(
         scene=scene, o=o, d=d, idx=idx.numpy(), hit_valid=hit_valid.numpy(),
         atten=rng.uniform(0.2, 1.0, (N, 3)).astype(np.float32),
         emitted=rng.uniform(0.0, 0.5, (N, 3)).astype(np.float32),
-        alive=alive, absorbed=absorbed, flags=flags.astype(np.int32),
+        alive=alive, absorbed=absorbed, spec_prev=spec_prev,
+        flags=flags.astype(np.int32),
         u=rng.random((N, 6), dtype=np.float32),
         u_rr=rng.random(N, dtype=np.float32) if rr else None)
+    if nee:
+        # a fifth of the lanes come from a bounce that took no light sample
+        pdf = rng.uniform(0.0, 2.0, N).astype(np.float32)
+        case.update(prev_pdf=np.where(rng.random(N) < 0.2, 0.0,
+                                      pdf).astype(np.float32),
+                    u_nee=rng.random((N, 3), dtype=np.float32))
+    return case
 
 
 def state(case: dict, layout: str, device, perm=None) -> dict:
@@ -116,7 +137,12 @@ def state(case: dict, layout: str, device, perm=None) -> dict:
     tensors) in ``layout``: "caller", the state as (N, 3) tensors and a
     bool ``absorbed``; "march", three separate planes each and the flags
     word, the lanes in the order ``perm`` (a fixed shuffle by default), as
-    the march's sorted wavefront holds them."""
+    the march's sorted wavefront holds them. Of an NEE case, those of
+    ``shade.shade_nee`` (and its twin ``integrator.shade_nee_reference``):
+    the tables with their emitter rows, and besides, ``spec_prev`` (a bool
+    plane in caller order, None in the march's, where the flags word holds
+    it), ``prev_pdf``, ``u_nee``, ``handles_dead`` (the march's) and a
+    fresh ``scratch``."""
     if perm is None:
         perm = (np.arange(N) if layout == "caller"
                 else np.random.default_rng(9).permutation(N))
@@ -124,7 +150,8 @@ def state(case: dict, layout: str, device, perm=None) -> dict:
     def t(x):
         return torch.from_numpy(np.ascontiguousarray(x[perm])).to(device)
     scene = case["scene"].to(device)
-    out = dict(tables=shade.shade_tables(scene), idx=t(case["idx"]),
+    out = dict(tables=shade.shade_tables(scene, nee="u_nee" in case),
+               idx=t(case["idx"]),
                hit_valid=t(case["hit_valid"]), o=t(case["o"]),
                d=t(case["d"]), alive=t(case["alive"]), u=t(case["u"]),
                u_rr=None if case["u_rr"] is None else t(case["u_rr"]),
@@ -137,19 +164,34 @@ def state(case: dict, layout: str, device, perm=None) -> dict:
         out["atten"] = tuple(t(case["atten"][:, k]) for k in range(3))
         out["emitted"] = tuple(t(case["emitted"][:, k]) for k in range(3))
         out["absorbed"] = t(case["flags"])
+    if "u_nee" in case:
+        out.update(spec_prev=(t(case["spec_prev"]) if layout == "caller"
+                              else None),
+                   prev_pdf=t(case["prev_pdf"]), u_nee=t(case["u_nee"]),
+                   handles_dead=layout == "march",
+                   scratch=shade.nee_scratch(N, device))
     return out
 
 
 def results(args: dict) -> dict:
     """The state after a call, as numpy: o, d, atten, emitted (N, 3),
     alive, absorbed (bool, decoded from the flags word in the march
-    layout) and, in that layout, the word itself."""
+    layout) and, in that layout, the word itself; of an NEE case besides
+    spec_prev (decoded likewise), prev_pdf and the scratch's fields."""
     out = {k: args[k].cpu().numpy() for k in ("o", "d", "alive")}
     for k in ("atten", "emitted"):
         out[k] = torch.stack(args[k], dim=1).cpu().numpy()
     a = args["absorbed"].cpu().numpy()
-    if a.dtype == np.int32:
-        out["flags"] = a
-        a = ((a >> shade.ABSORBED_BIT) & 1) != 0
+    flags = a if a.dtype == np.int32 else None
+    if flags is not None:
+        out["flags"] = flags
+        a = ((flags >> shade.ABSORBED_BIT) & 1) != 0
     out["absorbed"] = a
+    if "scratch" in args:
+        out["spec_prev"] = (((flags >> (shade.ABSORBED_BIT + 1)) & 1) != 0
+                            if flags is not None
+                            else args["spec_prev"].cpu().numpy())
+        out["prev_pdf"] = args["prev_pdf"].cpu().numpy()
+        for k, x in args["scratch"]._asdict().items():
+            out[k] = x.cpu().numpy()
     return out

@@ -985,6 +985,68 @@ def test_shade_kernel_matches_twin(gpu, prim, material, rr, layout):
         shade_cases.state(case, layout, "cpu"))["alive"]).any()
 
 
+def _shadow_answer(case, scratch, dev):
+    """A shadow query's answer for the NEE case's scratch (a brute scan of
+    its scene), with every fifth lane's t put on the occlusion threshold
+    1 - t_min in float32 and its two neighbours."""
+    _, t, valid = intersect.brute_force_closest(
+        case["scene"].to(dev), scratch.origin, scratch.seg, K_SHADOW_T_MIN,
+        intersect.BIG_T)
+    edge = torch.tensor(1.0 - T_MIN, dtype=torch.float32)
+    near = torch.stack([edge, torch.nextafter(edge, torch.tensor(0.0)),
+                        torch.nextafter(edge, torch.tensor(2.0))]).to(dev)
+    t, valid = t.clone(), valid.clone()
+    for k in range(3):
+        t[k::5] = near[k]
+        valid[k::5] = True
+    return t, valid
+
+
+@pytest.mark.parametrize("layout", ["caller", "march"])
+@pytest.mark.parametrize("rr", [False, True], ids=["no_rr", "rr"])
+@pytest.mark.parametrize("material", shade_cases.MATERIALS)
+@pytest.mark.parametrize("prim", shade_cases.PRIMS)
+def test_shade_nee_kernels_match_twins(gpu, prim, material, rr, layout):
+    """The NEE pair against its twins' torch composition on the card, from
+    the same state, bit for bit: the first kernel's state, NEE state and
+    scratch (shadow rays, with zero segments off the light-sampling lanes
+    on the march, each sample's share), then, from one shadow answer, the
+    second's emitted sum; every primitive kind and material case, with and
+    without roulette, in caller order and in march order. One launch of
+    each kernel, none by the twins."""
+    case = shade_cases.make_case(prim, material, rr, nee=True)
+    ref = shade_cases.state(case, layout, gpu)
+    got = shade_cases.state(case, layout, gpu)
+    before = shade.SHADE_NEE_LAUNCHES
+    before_finish = shade.SHADE_NEE_FINISH_LAUNCHES
+    integrator.shade_nee_reference(**ref)
+    assert shade.SHADE_NEE_LAUNCHES == before
+    shade.shade_nee(**got)
+    assert shade.SHADE_NEE_LAUNCHES == before + 1
+    a, b = shade_cases.results(got), shade_cases.results(ref)
+    for f in a:
+        np.testing.assert_array_equal(_as_bits(a[f]), _as_bits(b[f]),
+                                      err_msg=f)
+    t_sh, sh_valid = _shadow_answer(case, ref["scratch"], gpu)
+    shade.shade_nee_finish_reference(t_sh, sh_valid, ref["scratch"].cand,
+                                     ref["emitted"], T_MIN)
+    assert shade.SHADE_NEE_FINISH_LAUNCHES == before_finish
+    shade.shade_nee_finish(t_sh, sh_valid, got["scratch"].cand,
+                           got["emitted"], T_MIN)
+    assert shade.SHADE_NEE_LAUNCHES == before + 1
+    assert shade.SHADE_NEE_FINISH_LAUNCHES == before_finish + 1
+    np.testing.assert_array_equal(
+        _as_bits(shade_cases.results(got)["emitted"]),
+        _as_bits(shade_cases.results(ref)["emitted"]))
+    # what the case is there for: the lanes that sample a light
+    takes = material in ("lambertian", "textured", "metal_fuzz_below")
+    assert a["take"].any() == takes
+    if takes:
+        assert (a["cand"][a["take"]] > 0).any()
+    if layout == "march":
+        assert not a["seg"][~a["take"]].any()
+
+
 def _math_inputs(fn, dev):
     """Float32 inputs over the ranges the kernel calls each function on,
     and beyond: 2^22 of them, plus the edges."""
@@ -995,8 +1057,8 @@ def _math_inputs(fn, dev):
         a = torch.cat([(2.0 * vec.PI) * u, (u - 0.5) * 200.0])
     elif fn in ("acos", "atan2"):
         a = torch.cat([u * 2.0 - 1.0, torch.tensor([-1.0, 1.0, 0.0, -0.0])])
-    elif fn == "pow5":
-        a = torch.cat([u * 2.0, torch.tensor([0.0, 1.0])])
+    elif fn in ("pow5", "cube"):
+        a = torch.cat([u * 2.0, torch.tensor([0.0, 1.0, 1e-4])])
     else:
         a = torch.cat([u, torch.tensor([0.0, 1e-30])])
     b = torch.rand(a.shape[0], generator=g) * 2.0 - 1.0
@@ -1013,7 +1075,8 @@ def test_shade_math_calls_match_torch(gpu, fn):
            "acos": lambda: torch.acos(a),
            "atan2": lambda: torch.atan2(a, b),
            "pow5": lambda: torch.pow(a, 5.0),
-           "cbrt": lambda: torch.pow(a, 1.0 / 3.0)}[fn]()
+           "cbrt": lambda: torch.pow(a, 1.0 / 3.0),
+           "cube": lambda: a ** 3}[fn]()
     got = shade.math_kernel(fn, a, b if fn == "atan2" else None)
     differ = (got.view(torch.int32) != ref.view(torch.int32))
     assert int(differ.sum()) == 0, (
@@ -1036,41 +1099,92 @@ def _count_bounces(monkeypatch):
     return count
 
 
-@pytest.mark.parametrize("cell", ["bunny", "rtow"])
+@pytest.mark.parametrize("cell", ["bunny", "rtow", "cornell"])
 def test_shade_launches_are_the_bounces_of_a_bench_render(gpu, cell,
                                                           monkeypatch):
     """One sample of a benchmark cell's image at its shape (the bunny
     640x360, depth 4, on the sorted march; the triangle world 800x450,
-    depth 50, on the tensor route; chunks of 16,384): one shading launch
-    a bounce, every bounce."""
+    depth 50, and the Cornell box's full variant 256x256 under NEE, depth
+    4, through the dense sweep; chunks of 16,384): one launch a bounce,
+    every bounce, of the shading kernel, or under NEE of each of the pair's
+    kernels and none of the other."""
     if cell == "bunny":
         cfg = RenderConfig(width=640, height=360, spp=1, max_depth=4,
                            ray_chunk=16384, accel="auto", scene="bunny")
-    else:
+        scene, cam = get_world(cfg.scene, device=gpu)
+    elif cell == "rtow":
         cfg = RenderConfig(width=800, height=450, spp=1, max_depth=50,
                            ray_chunk=16384, accel="auto", scene="triangle")
-    scene, cam = get_world(cfg.scene, device=gpu)
+        scene, cam = get_world(cfg.scene, device=gpu)
+    else:
+        scene, cam, cfg = get_preset("cornell-full", device=gpu)
+        cfg = cfg.replace(spp=1, ray_chunk=16384)
     count = _count_bounces(monkeypatch)
-    shade.SHADE_LAUNCHES = 0
+    shade.SHADE_LAUNCHES = shade.SHADE_NEE_LAUNCHES = 0
+    shade.SHADE_NEE_FINISH_LAUNCHES = 0
     img = make_renderer(cfg, gpu)(scene, cam)
     torch.cuda.synchronize()
-    assert count[0] > 0 and shade.SHADE_LAUNCHES == count[0]
+    nee = (shade.SHADE_NEE_LAUNCHES, shade.SHADE_NEE_FINISH_LAUNCHES)
+    if cfg.nee:
+        assert count[0] > 0 and nee == (count[0],) * 2
+        assert shade.SHADE_LAUNCHES == 0
+    else:
+        assert count[0] > 0 and shade.SHADE_LAUNCHES == count[0]
+        assert nee == (0, 0)
     assert torch.isfinite(img).all()
 
 
-def test_shade_kernel_idles_under_nee_and_autograd(gpu, monkeypatch):
-    """NEE's bounces and the differentiable pass keep the torch
-    composition: no shading launch, though they bounce."""
+@pytest.mark.parametrize("path", ["autograd", "nee"])
+def test_shade_kernels_under_nee_and_autograd(gpu, path, monkeypatch):
+    """The differentiable pass keeps the torch composition: no shading
+    launch, though it bounces. NEE's bounces (Cornell with Russian
+    roulette through the dense sweep) launch each of the pair's kernels
+    once a bounce and the shading kernel never."""
     count = _count_bounces(monkeypatch)
-    shade.SHADE_LAUNCHES = 0
-    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=3,
-                       ray_chunk=1024, accel="pallas", scene="cornell",
-                       sky=False, nee=True, rr=True, rr_depth=1)
-    scene, cam = get_world("cornell", device=gpu)
-    make_renderer(cfg, gpu)(scene, cam)
-    make, cfg = _small_diff_case("bunny")
-    diff.paired_gradients(make, cfg, (gpu, "cpu"))
-    assert count[0] > 0 and shade.SHADE_LAUNCHES == 0
+    shade.SHADE_LAUNCHES = shade.SHADE_NEE_LAUNCHES = 0
+    shade.SHADE_NEE_FINISH_LAUNCHES = 0
+    nee = (lambda: (shade.SHADE_NEE_LAUNCHES,
+                    shade.SHADE_NEE_FINISH_LAUNCHES))
+    if path == "autograd":
+        make, cfg = _small_diff_case("bunny")
+        diff.paired_gradients(make, cfg, (gpu, "cpu"))
+        assert count[0] > 0 and nee() == (0, 0)
+    else:
+        cfg = RenderConfig(width=32, height=32, spp=2, max_depth=3,
+                           ray_chunk=1024, accel="pallas", scene="cornell",
+                           sky=False, nee=True, rr=True, rr_depth=1)
+        scene, cam = get_world("cornell", device=gpu)
+        make_renderer(cfg, gpu)(scene, cam)
+        torch.cuda.synchronize()
+        assert count[0] > 0 and nee() == (count[0],) * 2
+    assert shade.SHADE_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("route", ["pallas", "cluster"])
+def test_nee_render_on_the_card_gives_the_composition_bits(gpu, route,
+                                                            monkeypatch):
+    """The Cornell box's full variant under NEE and Russian roulette on
+    the card, 64x64 at 2 spp: through the NEE pair, the image and stats
+    bit-equal to the torch composition's on the card (``_fused_shading``
+    False), in caller order through the dense sweep and on the march's
+    sorted payload."""
+    scene, cam, cfg = get_preset("cornell-full", device=gpu)
+    cfg = cfg.replace(width=64, height=64, spp=2, ray_chunk=4096,
+                      accel=route, rr=True, rr_depth=1)
+
+    def render():
+        img, stats = make_renderer(cfg, gpu, with_stats=True).render_passes(
+            scene, cam, 1, seed=7)
+        return img.cpu().numpy(), stats
+    shade.SHADE_NEE_LAUNCHES = 0
+    fused = render()
+    assert shade.SHADE_NEE_LAUNCHES > 0
+    monkeypatch.setattr(integrator, "_fused_shading",
+                        lambda differentiable: False)
+    composed = render()
+    np.testing.assert_array_equal(fused[0].view(np.int32),
+                                  composed[0].view(np.int32))
+    assert fused[1] == composed[1] and fused[1][1] > 0
 
 
 def test_shade_wrapper_rejects_bad_inputs(gpu):
@@ -1098,3 +1212,64 @@ def test_shade_wrapper_rejects_bad_inputs(gpu):
     with pytest.raises(ValueError):
         shade.shade_bounce(**bad(o=good["o"].requires_grad_()))
     assert shade.SHADE_LAUNCHES == before
+
+
+def test_shade_nee_wrappers_reject_bad_inputs(gpu):
+    case = shade_cases.make_case("sphere", "lambertian", False, nee=True)
+    good = shade_cases.state(case, "caller", gpu)
+    march = shade_cases.state(case, "march", gpu)
+
+    def bad(**changes):
+        return {**shade_cases.state(case, "caller", gpu), **changes}
+    n = shade_cases.N
+    before = shade.SHADE_NEE_LAUNCHES
+    scratch = good["scratch"]
+    # the scratch is sized, typed and placed like the wavefront
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(scratch=shade.nee_scratch(n - 1, gpu)))
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(scratch=scratch._replace(
+            cand=torch.zeros((n, 4), device=gpu))))
+    with pytest.raises(TypeError):
+        shade.shade_nee(**bad(scratch=scratch._replace(
+            take=torch.zeros(n, dtype=torch.uint8, device=gpu))))
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(scratch=shade.nee_scratch(n, "cpu")))
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(scratch=scratch._replace(
+            seg=torch.zeros((3, n), device=gpu).t())))
+    # the NEE state
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(spec_prev=None))
+    with pytest.raises(ValueError):
+        shade.shade_nee(**{**march, "spec_prev": good["spec_prev"]})
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(prev_pdf=good["prev_pdf"][:-1]))
+    with pytest.raises(TypeError):
+        shade.shade_nee(**bad(u_nee=good["u_nee"].double()))
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(u_nee=good["u_nee"][:, :2].contiguous()))
+    # the emitter rows: built, and of a scene that has emitters
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(tables=shade.shade_tables(
+            case["scene"].to(gpu))))
+    no_lights = case["scene"]._replace(
+        light_idx=case["scene"].light_idx[:0]).to(gpu)
+    with pytest.raises(ValueError):
+        shade.shade_nee(**bad(tables=shade.shade_tables(no_lights,
+                                                        nee=True)))
+    assert shade.SHADE_NEE_LAUNCHES == before
+    # the second kernel's inputs
+    before = shade.SHADE_NEE_FINISH_LAUNCHES
+    t_sh = torch.ones(n, device=gpu)
+    valid = torch.zeros(n, dtype=torch.bool, device=gpu)
+    with pytest.raises(ValueError):
+        shade.shade_nee_finish(t_sh[:-1], valid, scratch.cand,
+                               good["emitted"], T_MIN)
+    with pytest.raises(TypeError):
+        shade.shade_nee_finish(t_sh, valid.float(), scratch.cand,
+                               good["emitted"], T_MIN)
+    with pytest.raises(ValueError):
+        shade.shade_nee_finish(t_sh, valid, scratch.cand,
+                               good["emitted"][:2], T_MIN)
+    assert shade.SHADE_NEE_FINISH_LAUNCHES == before

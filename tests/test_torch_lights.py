@@ -17,6 +17,7 @@ from pathtracer_tpu.render.renderer import _with_shadow as jwith_shadow
 from pathtracer_tpu.scene import cornell as jcornell
 from pathtracer_tpu.scene import scene as jscene
 from pathtracer_tpu_torch.core import rays as trays
+from pathtracer_tpu_torch.ops import shade
 from pathtracer_tpu_torch.render import integrator as tintegrator
 from pathtracer_tpu_torch.render import lights as tlights
 from pathtracer_tpu_torch.render.renderer import _with_shadow as twith_shadow
@@ -107,7 +108,10 @@ def test_bsdf_hit_light_weight_matches(scenes):
 @pytest.mark.parametrize("masked", [False, True])
 def test_direct_lighting_matches(scenes, masked):
     """Through the brute closest hit with its K_SHADOW_T_MIN shadow query,
-    at points inside the room, lambertian and fuzzy-metal lobes."""
+    at points inside the room, lambertian and fuzzy-metal lobes. The
+    port's ``direct_lighting`` is the estimate should nothing occlude the
+    sample; its integrator queries the shadow ray and adds what the query
+    lets through (``ops/shade.nee_finish``), composed here as there."""
     js, ts = scenes
     rng = np.random.default_rng(3)
     p = rng.uniform((10, 10, 10), (540, 540, 550), (N, 3)).astype(np.float32)
@@ -127,9 +131,15 @@ def test_direct_lighting_matches(scenes, masked):
         js, ja[0], ja[1], ja[2], jclosest, ja[3], eps=1e-3,
         active=None if active is None else jnp.asarray(active),
         glossy=ja[4:])
-    trad, tok = tlights.direct_lighting(
-        ts, ta[0], ta[1], ta[2], tclosest, ta[3], ta[4:], eps=1e-3,
-        active=None if active is None else torch.from_numpy(active))
+    light = tlights.sample_lights(ts, ta[3])
+    origin, seg = tlights.shadow_segment(ta[0], ta[1], light.point, 1e-3)
+    rad, tok = tlights.direct_lighting(seg, ta[1], ta[2], light, ta[4:])
+    mask = None if active is None else torch.from_numpy(active)
+    _, t_sh, valid = tclosest.query_shadow(
+        origin, seg if mask is None else torch.where(mask[:, None], seg, 0.0),
+        mask)
+    tok = tok & (~valid | (t_sh >= 1.0 - 1e-3))
+    trad = shade.nee_finish(t_sh, valid, rad, torch.zeros_like(rad), 1e-3)
     ok = np.asarray(jok)
     # some samples are lit, some occluded or facing away
     assert 0.1 * N < ok.sum() < 0.9 * N

@@ -7,9 +7,14 @@
   and pow differ by an ulp between the two libraries; flags exactly);
 - the sorted payload's flags word: decoded, shaded and encoded, it gives
   the bool layout's state with the ray id and spec_prev bits kept;
-- ``integrator.trace`` through the twin gives the bits of the torch
-  composition that NEE and autograd run (``_fused_shading`` False), on the
-  triangle world, the bunny and the textured Cornell box without NEE.
+- ``integrator.trace`` through the twins gives the bits of the torch
+  composition that autograd runs (``_fused_shading`` False): on the
+  triangle world, the bunny and the textured Cornell box without NEE
+  (``shade_bounce``), and under NEE (``integrator.shade_nee_reference``
+  and ``shade_nee_finish`` around the shadow query) on the Cornell box's
+  spheres and full variants, a fuzzy-metal room lit by a sphere emitter,
+  with and without Russian roulette, in caller order and on the march's
+  sorted payload (``handles_dead``).
 """
 import hashlib
 
@@ -24,10 +29,13 @@ from pathtracer_tpu.render import integrator as jintegrator
 from pathtracer_tpu.scene import materials as jmaterials
 from pathtracer_tpu.scene.scene import Scene as JScene
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.core.camera import make_camera
 from pathtracer_tpu_torch.ops import shade
 from pathtracer_tpu_torch.presets import get_preset
 from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.render.renderer import make_renderer
+from pathtracer_tpu_torch.scene.cornell import add_cornell_room, cornell_box
+from pathtracer_tpu_torch.scene.scene import SceneBuilder
 from pathtracer_tpu_torch.scene.worlds import get_world
 
 torch.set_num_threads(1)
@@ -145,9 +153,87 @@ def test_flags_word_layout_matches_the_bool_layout(material):
     assert b["absorbed"].sum() > case["absorbed"].sum()
 
 
-def _fused_off(differentiable, use_nee):
+@pytest.mark.parametrize("material", shade_cases.MATERIALS)
+@pytest.mark.parametrize("prim", shade_cases.PRIMS)
+def test_nee_twin_layouts_agree_and_sample_lights(prim, material):
+    """The NEE twin in the march's layout (separate planes, spec_prev in
+    the flags word, lanes shuffled, the shadow query taking only the
+    light-sampling lanes) gives the caller layout's results lane for lane,
+    bar the segments it zeroes; the diffuse and fuzzy-metal hits sample a
+    light, some of their samples reach it, and no other lane samples."""
+    case = shade_cases.make_case(prim, material, rr=True, nee=True)
+    caller = shade_cases.state(case, "caller", "cpu")
+    march = shade_cases.state(case, "march", "cpu")
+    perm = np.random.default_rng(9).permutation(shade_cases.N)
+    integrator.shade_nee_reference(**caller)
+    integrator.shade_nee_reference(**march)
+    a, b = shade_cases.results(caller), shade_cases.results(march)
+    for f in a:
+        if f != "seg":
+            np.testing.assert_array_equal(b[f], a[f][perm], err_msg=f)
+    np.testing.assert_array_equal(
+        b["seg"], np.where(a["take"][:, None], a["seg"], 0.0)[perm])
+    keep = ~(3 << shade.ABSORBED_BIT)
+    np.testing.assert_array_equal(b["flags"] & keep,
+                                  case["flags"][perm] & keep)
+    takes = material in ("lambertian", "textured", "metal_fuzz_below")
+    assert a["take"].any() == takes
+    if takes:
+        assert 0 < (a["cand"][a["take"]] > 0).any(1).sum() < a["take"].sum()
+    if material == "emissive":
+        # the balance heuristic weighs the emitter hits off a glossy or
+        # diffuse bounce, and keeps the full weight after a delta lobe
+        hit = case["alive"] & case["hit_valid"]
+        full = case["emitted"] + case["atten"] * np.float32((4.0, 3.0, 2.0))
+        spec = case["spec_prev"]
+        np.testing.assert_array_equal(a["emitted"][hit & spec],
+                                      full[hit & spec])
+        assert (a["emitted"][hit & ~spec] < full[hit & ~spec]).all()
+
+
+def test_shade_nee_launches_only_on_the_card():
+    """The first NEE kernel's wrapper has no CPU branch: on a CPU
+    wavefront it raises and writes nothing (the integrator runs the twin
+    there)."""
+    case = shade_cases.make_case("sphere", "lambertian", rr=False, nee=True)
+    args = shade_cases.state(case, "caller", "cpu")
+    o = args["o"].clone()
+    with pytest.raises(ValueError, match="shade_nee_reference"):
+        shade.shade_nee(**args)
+    assert torch.equal(args["o"], o)
+
+
+def _fused_off(differentiable):
     return False
 
+
+def _glossy_room(device):
+    """The Cornell room (its ceiling light a pair of emitting triangles)
+    with a fuzzy metal, a glass, a textured and an emitting sphere: every
+    lobe the NEE bounce weighs, and both kinds of light sample."""
+    b = SceneBuilder()
+    add_cornell_room(b)
+    b.add_sphere((180.0, 100.0, 200.0), 100.0, b.add_metal((0.9, 0.8, 0.7),
+                                                           0.35))
+    b.add_sphere((400.0, 90.0, 320.0), 90.0, b.add_dielectric(1.5))
+    tex = np.random.default_rng(4).random((4, 8, 3), dtype=np.float32)
+    b.add_sphere((420.0, 300.0, 420.0), 60.0,
+                 b.add_lambertian((0.9, 0.9, 0.9), tex_id=b.add_texture(tex)))
+    b.add_sphere((140.0, 420.0, 380.0), 40.0, b.add_emissive((6.0, 5.0, 4.0)))
+    cam = make_camera((278, 273, -800), (278, 273, 0), 40, 16.0 / 9.0,
+                      aperture=0, focus_dist=10, time0=0.0, time1=1.0,
+                      device=device)
+    return b.build(device=device), cam
+
+
+NEE = dict(width=32, height=18, spp=2, max_depth=4, ray_chunk=288,
+           sky=False, nee=True, scene="cornell")
+WORLDS = {
+    "cornell_full": lambda: get_preset("cornell-full", device="cpu")[:2],
+    "cornell_spheres": lambda: cornell_box(variant="spheres", aspect=16 / 9,
+                                           device="cpu"),
+    "glossy_room": lambda: _glossy_room("cpu"),
+}
 
 RENDERS = {
     "triangle": dict(width=32, height=18, spp=2, max_depth=6, ray_chunk=288,
@@ -156,17 +242,29 @@ RENDERS = {
                   accel="auto", scene="bunny"),
     "bunny_rr": dict(width=32, height=18, spp=2, max_depth=6, ray_chunk=288,
                      accel="auto", scene="bunny", rr=True, rr_depth=1),
+    # textures and emitters, no NEE: shade_bounce shades them
     "cornell_full": dict(width=32, height=18, spp=2, max_depth=4,
                          ray_chunk=288, accel="tensor", sky=False,
                          scene="cornell"),
+    # under NEE, in caller order (the tensor route queries every lane)
+    "nee_cornell_spheres": dict(NEE, accel="tensor"),
+    "nee_cornell_full": dict(NEE, accel="tensor"),
+    "nee_cornell_full_rr": dict(NEE, accel="tensor", rr=True, rr_depth=1),
+    "nee_glossy_room": dict(NEE, accel="tensor"),
+    "nee_glossy_room_rr": dict(NEE, accel="tensor", rr=True, rr_depth=1),
+    # on the march's sorted payload, whose shadow query takes the lanes
+    # that sample a light (handles_dead)
+    "nee_march_glossy_room_rr": dict(NEE, accel="cluster", ray_chunk=256,
+                                     rr=True, rr_depth=1),
 }
 
 
 def _render(name):
     kw = RENDERS[name]
-    if name == "cornell_full":
-        # textures and emitters, no NEE: the fused path shades them
-        scene, cam, _ = get_preset("cornell-full", device="cpu")
+    world = name.replace("nee_", "").replace("march_", "").replace("_rr",
+                                                                   "")
+    if world in WORLDS:
+        scene, cam = WORLDS[world]()
     else:
         scene, cam = get_world(kw["scene"], device="cpu")
     renderer = make_renderer(RenderConfig(**kw), "cpu", with_stats=True)
@@ -182,3 +280,5 @@ def test_trace_through_the_twin_gives_the_composition_bits(name,
     composed = _render(name)
     assert fused == composed
     assert fused[0][0] > 0
+    # every NEE render casts shadow rays
+    assert (fused[0][1] > 0) == RENDERS[name].get("nee", False)
