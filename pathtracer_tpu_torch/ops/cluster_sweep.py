@@ -55,6 +55,7 @@ from pathtracer_tpu_torch.ops.clusters import K_RES, ClusterTables
 from pathtracer_tpu_torch.ops.tensor_sweep import (BIG, FEAT, OUTS,
                                                    _epilogue, check_ranges,
                                                    contract, ray_features)
+from pathtracer_tpu_torch.utils import metrics
 
 DEF_RAY_TILE = 128
 DEF_WINDOW = 4       # clusters per round's window
@@ -71,9 +72,12 @@ _RESOLVED_KEY = 0x3FFFFFFF
 _ENTRY_MARGIN = 1e-4
 
 # Launches of the CUDA march and window kernels in this process (each wrapper
-# adds one per launch and nowhere else); callers reset them to 0 to count a
+# adds one per launch and nowhere else), and the march route's shadow
+# queries (one march each: on the card a launch that MARCH_LAUNCHES counts
+# too, elsewhere a call of the twin); callers reset them to 0 to count a
 # run.
 MARCH_LAUNCHES = 0
+MARCH_SHADOW_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
 _MARCH_PROTOTYPES = {"cluster_march_launch": (
@@ -474,10 +478,15 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
     not marched. ``sort_rays`` False skips the binning sort (same result,
     less locality). ``cull2`` and ``sup``: the cull plan of
     :func:`march_inputs` (exact either way; winners may differ only at
-    bit-equal t ties)."""
-    q = march_inputs(ct, o, d, t_min, ray_tile=ray_tile, active=active,
-                     extras=extras, t_max=t_max, sort_rays=sort_rays,
-                     cull2=cull2, sup=sup)
+    bit-equal t ties).
+
+    The host's work before the launch, :func:`march_inputs`, is a
+    ``pt.cull`` span (``utils/metrics.span``), inside the caller's
+    ``pt.query``."""
+    with metrics.span("pt.cull"):
+        q = march_inputs(ct, o, d, t_min, ray_tile=ray_tile, active=active,
+                         extras=extras, t_max=t_max, sort_rays=sort_rays,
+                         cull2=cull2, sup=sup)
     t_best, best, slots = march(*q["args"])
     pair_tests = slots.sum() * (ct.K * ray_tile)
 
@@ -798,6 +807,8 @@ def make_cluster_closest_hit(ct: ClusterTables, t_min: float,
             # rejects geometry beyond the light and stops the march there.
             # Its origin is already offset off the surface (render/lights),
             # so t_min is the near-zero K_SHADOW_T_MIN, not the bounce t_min
+            global MARCH_SHADOW_LAUNCHES
+            MARCH_SHADOW_LAUNCHES += 1
             return cluster_march(ct, o, d, K_SHADOW_T_MIN, ray_tile=ray_tile,
                                  active=active, t_max=1.0, sort_rays=False,
                                  cull2=cull2, sup=sup)

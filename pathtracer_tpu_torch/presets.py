@@ -30,14 +30,17 @@ PRESETS = ("cornell-direct", "cornell-full", "cornell-diff", "bunny",
            "combined-1080p")
 
 
-def combined_scene(aspect: float = 16.0 / 9.0,
+def combined_scene(aspect: float = 16.0 / 9.0, obj_path: str | None = None,
                    device="cuda") -> Tuple[Scene, Camera]:
     """The bunny mesh standing in the Cornell room (scaled to ~250 units,
-    centred on the floor) with a mirror and a glass sphere; the procedural
-    stand-in mesh when no bunny OBJ is found."""
+    centred on the floor) with a mirror and a glass sphere. The mesh is
+    ``obj_path`` where given, else :func:`resolve_bunny_obj`'s
+    (``PT_BUNNY_OBJ``, then the vendored asset), else the procedural
+    stand-in."""
     b = SceneBuilder()
     add_cornell_room(b)
-    obj_path = resolve_bunny_obj()
+    if obj_path is None:
+        obj_path = resolve_bunny_obj()
     if obj_path is not None:
         verts, faces = load_obj(obj_path)
     else:

@@ -5,7 +5,9 @@
   otherwise: ``pt.pass`` (a pass of ``Renderer.render_passes``),
   ``pt.bounce`` (a trip of the integrator's bounce loop), ``pt.light``
   (a bounce's next-event-estimation work, its shadow query included),
-  ``pt.query`` (a closest-hit or shadow query, at its call site) and
+  ``pt.query`` (a closest-hit or shadow query, at its call site),
+  ``pt.cull`` (the cluster march's host work before its launch,
+  ``ops/cluster_sweep.march_inputs``, inside its ``pt.query``) and
   ``pt.wait`` (a host read of a device value on the render path);
 - :func:`mrays_per_s`: the nominal throughput, pixels x spp x depth
   closest-hit queries per wall-second;
@@ -164,11 +166,11 @@ def span(name: str, args=None):
 
     Spans nest on the host thread: ``pt.pass`` holds the ``pt.bounce``
     trips of its chunks, a bounce its ``pt.query`` calls and, under NEE,
-    its ``pt.light`` spans, which hold the shadow queries; ``pt.wait``
-    sits where the host waits (the bounce loop's test sits between
-    bounces). Their times are on the profiler's clock, the one its device
-    intervals are on, so an idle stretch of the device falls inside the
-    span the host was in. Outside :func:`trace_context` they stay out of
+    its ``pt.light`` spans, which hold the shadow queries; a march
+    query holds its ``pt.cull``; ``pt.wait`` sits where the host waits
+    (the bounce loop's test sits between bounces). Their times are on the
+    profiler's clock, the one its device intervals are on, so an idle
+    stretch of the device falls inside the span the host was in. Outside :func:`trace_context` they stay out of
     the profile: the profiler mirrors a range onto the device's timeline
     around the work launched in it, where a reader of device intervals
     would take it for work."""
@@ -183,8 +185,8 @@ def trace_context(log_dir: Optional[str]) -> Iterator[None]:
     there is one) when ``log_dir`` is set, writing the Chrome trace
     ``log_dir/trace.json`` on exit; a no-op otherwise. The trace carries
     the program's spans (:func:`span`: ``pt.pass``, ``pt.bounce``,
-    ``pt.light``, ``pt.query``, ``pt.wait``) as ranges around the work
-    they hold.
+    ``pt.light``, ``pt.query``, ``pt.cull``, ``pt.wait``) as ranges
+    around the work they hold.
     Synchronise inside the scope, so the card's work falls in it:
 
         with trace_context("out/trace"):

@@ -4,16 +4,20 @@
 - under ``torch.profiler`` a render keeps ``pt.pass`` ⊃ ``pt.bounce`` ⊃
   ``pt.query`` / ``pt.wait`` nested on the host thread, one closest-hit
   query a bounce trip, under NEE ``pt.light`` spans inside the bounce
-  holding each shadow ``pt.query``, and no span enters the profile itself
-  (so a reader of the profile's events sees the work alone);
+  holding each shadow ``pt.query``, on the march route one ``pt.cull``
+  inside each ``pt.query``, and no span enters the profile itself (so a
+  reader of the profile's events sees the work alone);
 - with no profiler recording, a render enters ``record_function`` zero
   times and keeps nothing;
 - ``trace_context``'s Chrome trace carries the spans;
 - the renderer's stats are the ones recorded before the counters moved
   to the device, on the sorted march, the tensor route and the march's
-  shadow queries, and its image bits are the same with the spans
-  recorded under a profiler as without; the march's pair tests are its
-  slots times K times the ray tile;
+  shadow queries (the combined scene's were recorded when the case was
+  added, on the march queried in caller order), and its image bits are
+  the same with the spans recorded under a profiler as without; the
+  march's pair tests are its slots times K times the ray tile;
+- the march's shadow-query counter counts one a bounce of a chunk under
+  NEE on the march route, and none without NEE;
 - a traced run of each benchmark cell on the CPU reads the four span
   metrics.
 """
@@ -36,9 +40,10 @@ from pathtracer_tpu_torch.utils import metrics
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("pt.pass", "pt.bounce", "pt.query", "pt.wait")
 
-# 2 samples in 1-spp passes of two 256-ray chunks; recorded before the
-# counters moved to the device: the executed (queries, shadow queries,
-# pair tests) at seed 5
+# 2 samples in 1-spp passes of two 256-ray chunks (combined: one 576-ray
+# chunk, which leaves the sorted wavefront off); recorded before the
+# counters moved to the device (combined: when the case was added): the
+# executed (queries, shadow queries, pair tests) at seed 5
 CASES = {
     "bunny": (dict(width=32, height=16, spp=2, max_depth=4, ray_chunk=256,
                    accel="auto", scene="bunny"),
@@ -49,10 +54,20 @@ CASES = {
     "cornell": (dict(width=32, height=16, spp=2, max_depth=3, ray_chunk=256,
                      accel="cluster", sky=False, nee=True, scene="cornell"),
                 (2614.0, 1901.0, 196608.0)),
+    "combined": (dict(width=32, height=18, spp=2, max_depth=3,
+                      ray_chunk=576, accel="auto", sky=False, nee=True,
+                      stratify=True, scene="combined"),
+                 (2187.0, 1198.0, 0.0)),
 }
-def render(case):
-    kw = CASES[case][0]
-    scene, cam = get_world(kw["scene"], device="cpu")
+# the cases on the march route, whose queries each hold a pt.cull span
+MARCH = ("bunny", "cornell", "combined")
+
+
+def render(case, **changes):
+    kw = {**CASES[case][0], **changes}
+    args = ({"obj_path": os.path.join(ROOT, "assets", "bunny.obj")}
+            if case == "combined" else {})
+    scene, cam = get_world(kw["scene"], device="cpu", **args)
     renderer = make_renderer(RenderConfig(**kw), "cpu", with_stats=True)
     return renderer.render_passes(scene, cam, 1, seed=5)
 
@@ -87,12 +102,17 @@ def profiled(fn):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_spans_nest_under_a_profiler(case):
     (_, stats), kept, prof = profiled(lambda: render(case))
-    names = NAMES + (("pt.light",) if CASES[case][0].get("nee") else ())
+    names = (NAMES + (("pt.light",) if CASES[case][0].get("nee") else ())
+             + (("pt.cull",) if case in MARCH else ()))
     by = {n: [x for x in kept if x[2] == n] for n in names}
     assert set(x[2] for x in kept) == set(names)
     assert [x[3] for x in by["pt.pass"]] == [(0, 1), (1, 1)]
     assert all(inside(b, by["pt.pass"]) for b in by["pt.bounce"])
     assert all(inside(q, by["pt.bounce"]) for q in by["pt.query"])
+    if case in MARCH:
+        # the march's host work, one a query, inside it
+        assert len(by["pt.cull"]) == len(by["pt.query"])
+        assert all(inside(c, by["pt.query"]) for c in by["pt.cull"])
     assert all(inside(w, by["pt.pass"]) for w in by["pt.wait"])
     closest = [q for q in by["pt.query"] if q[3] == "closest"]
     assert len(closest) == len(by["pt.bounce"])
@@ -155,6 +175,19 @@ def test_stats_and_image_bits_as_recorded(case):
     (traced_img, traced_stats), kept, _ = profiled(lambda: render(case))
     assert kept and traced_stats == stats
     assert traced_img.numpy().tobytes() == img.numpy().tobytes()
+
+
+@pytest.mark.parametrize("case,nee", [("combined", True),
+                                      ("combined", False), ("bunny", False)])
+def test_march_shadow_launches_count_one_a_bounce_under_nee(case, nee,
+                                                           monkeypatch):
+    monkeypatch.setattr(cluster_sweep, "MARCH_SHADOW_LAUNCHES", 0)
+    _, kept, _ = profiled(lambda: render(case, nee=nee))
+    bounces = [x for x in kept if x[2] == "pt.bounce"]
+    shadows = [x for x in kept if x[2] == "pt.query" and x[3] == "shadow"]
+    assert bounces
+    assert len(shadows) == (len(bounces) if nee else 0)
+    assert cluster_sweep.MARCH_SHADOW_LAUNCHES == len(shadows)
 
 
 def test_march_pair_tests_stay_on_the_device():
