@@ -43,7 +43,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    256x256 through the dense sweep), its bounce around the route's
    shadow query bit-equal to the twins', and each kernel's launches on a
    1-spp Cornell image at the cell's shape (one each a bounce, and none
-   of ``shade_bounce``).
+   of ``shade_bounce``); (3f) the march's preparation kernels
+   (``march_bin``, ``march_order`` in ``csrc/cluster_march.cu``) through
+   ``march_inputs`` on the two march cells' queries (the bunny's
+   16,384-lane sorted wavefront with the integrator's extras, the
+   combined scene's 129,600-lane sorted closest-hit and unsorted shadow
+   query), every output held to the twin ``march_inputs_reference``, the
+   query's preparation timed beside the twin's with the aten ops it
+   dispatches, each kernel's device time and the bytes bound.
    Every kernel must agree with its twin to the bit. On every path of the
    later phases the draws kernel must launch, counted from that path's own
    run, and the draw sets it recorded there (the first and last of each
@@ -64,7 +71,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    triangle world at 1 spp and the rounds bunny once more under
    ``torch.profiler``, for the device's busy share and the sweep kernel's
    share of the device time. Each checks finite pixels and the image mean
-   and writes out/;
+   and writes out/; the march bunny's preparation launches, read from
+   its own render, must be two for each of its marches (``march_bin`` and
+   ``march_order`` on every sorted closest-hit query);
 5. end to end: small renders on the card against the same renders on the
    CPU (the plain twins, which the CPU tests hold against the JAX
    reference): the bunny, cornell-full through the dense sweep with NEE,
@@ -210,7 +219,11 @@ wavefront; for ``shade_bounce``, which replaces no Pallas kernel,
 ``path_launches`` on phase 3e's three images (0 on the Cornell one,
 whose bounces run the NEE pair) and the times of the bunny's chunk; for
 ``shade_nee`` and ``shade_nee_finish``, each one's own launches on phase
-3e's Cornell image and the times of the Cornell chunk), error,
+3e's Cornell image and the times of the Cornell chunk; for
+``march_prep``, the preparation kernels, which replace no Pallas kernel,
+launches on phase 4's march bunny, ``path_launches`` on each of phase
+4's renders, ``case_launches`` on phase 3f's three queries and the times
+of the bunny's query), error,
 times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -227,6 +240,10 @@ command can time two versions of the kernels on one card, in turns.
     python3 chip_smoke.py --shade
 
 runs phase 3e alone.
+
+    python3 chip_smoke.py --prep
+
+runs phase 3f alone.
 
     python3 chip_smoke.py --launches [DIR]
 
@@ -360,8 +377,9 @@ def nbytes(*xs) -> int:
 
 def kernel_label(mangled: str) -> str:
     """A kernel's short name from its mangled one."""
-    m = re.search(r"(cluster_march|dense_sweep|window_sweep|flat_uniforms|"
-                  r"ray_uniforms|bvh_traverse)_kernel", mangled)
+    m = re.search(r"(cluster_march|march_bin|march_order|dense_sweep|"
+                  r"window_sweep|flat_uniforms|ray_uniforms|bvh_traverse)"
+                  r"_kernel", mangled)
     return m.group(1) if m else mangled
 
 
@@ -762,6 +780,12 @@ def read_draws() -> int:
     """The draws kernel's launches since the last reset."""
     from pathtracer_tpu_torch import bench
     return bench.launch_counts()["ray_uniforms"]
+
+
+def read_prep() -> int:
+    """The march preparation kernels' launches since the last reset."""
+    from pathtracer_tpu_torch import bench
+    return bench.launch_counts()["march_prep"]
 
 
 def read_traversals() -> int:
@@ -2432,6 +2456,128 @@ def shade_kernel(dev, card, reps: int = 20):
     return main, nee_main, path_launches, nee_launches
 
 
+PREP_CASES = ("bunny 16384 sorted, extras", "combined 129600 closest",
+              "combined 129600 shadow")
+
+
+def prep_case(dev, case: str):
+    """(tables, o, d, t_min, march_inputs kwargs) of one of
+    :data:`PREP_CASES`: the bunny's 16,384-lane camera wavefront in the
+    sorted-wavefront protocol (a tenth of the lanes dead, three
+    attenuation planes, strided as the integrator's first bounce holds
+    them, and the flags word riding the sort), the combined
+    scene's 129,600-lane camera chunk as its closest-hit query, and
+    shadow segments from that query's hits to points in the room
+    (K_SHADOW_T_MIN, t_max 1, caller order)."""
+    import numpy as np
+    import torch
+    from pathtracer_tpu_torch.config import K_SHADOW_T_MIN
+    from pathtracer_tpu_torch.ops import cluster_sweep
+    from pathtracer_tpu_torch.ops.clusters import build_cluster_tables
+    from pathtracer_tpu_torch.presets import combined_scene
+    from pathtracer_tpu_torch.scene.worlds import get_world
+    rng = np.random.default_rng(25)
+    if case.startswith("bunny"):
+        scene, cam = get_world("bunny", device=dev)
+        n = SHADE_LANES
+    else:
+        scene, cam = combined_scene(device=dev)
+        n = 129600
+    ct = build_cluster_tables(scene, K=64)
+    o, d = camera_wavefront(dev, cam, n, 0)
+    if case.startswith("bunny"):
+        alive = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        atten = torch.from_numpy(rng.random((n, 3), dtype=np.float32))
+        flags = torch.arange(n, dtype=torch.int32, device=dev)
+        return ct, o, d, T_MIN, dict(
+            active=alive, extras=(*atten.to(dev).unbind(1), flags))
+    if case.endswith("closest"):
+        return ct, o, d, T_MIN, {}
+    _, t, valid = cluster_sweep.cluster_march(ct, o, d, T_MIN)
+    p = o + t[:, None] * d
+    light = torch.from_numpy(rng.uniform(
+        ct.cmin.amin(dim=0).cpu().numpy(), ct.cmax.amax(dim=0).cpu().numpy(),
+        (n, 3)).astype(np.float32)).to(dev)
+    seg = torch.where(valid[:, None], light - p, 0.0)
+    return ct, p, seg, K_SHADOW_T_MIN, dict(active=valid, t_max=1.0,
+                                            sort_rays=False)
+
+
+def prep_outputs(q) -> list:
+    """(name, tensor) of every output of a march_inputs dict."""
+    out = [(k, q[k]) for k in ("o", "d", "active", "active0", "rid",
+                               "t_res", "b_res")]
+    out += list(zip(("phi", "a", "gate", "ids", "ents"), q["args"][:5]))
+    return out + [("extras", x) for x in (q["extras"] or ())]
+
+
+def prep_kernels(dev, card, reps: int = 20):
+    """Phase 3f: the preparation kernels through ``march_inputs`` against
+    the twin on each of :data:`PREP_CASES`, every output to the bit (a NaN
+    matching any NaN: a NaN's bits are no part of the result), then the
+    query's preparation timed (CUDA events, median of ``reps``) beside the
+    twin's, the aten ops each dispatches, each kernel's device time
+    (``torch.profiler``) and the bytes bound: each lane's ray and mask
+    read once and its outputs written once, and each chunk's order.
+    Returns {case: (ms, plain ms, bound ms, bound by, launches)}."""
+    import torch
+    from pathtracer_tpu_torch.ops import cluster_sweep
+    main = {}
+    for case in PREP_CASES:
+        ct, o, d, t_min, kw = prep_case(dev, case)
+
+        def kernels():
+            return cluster_sweep.march_inputs(ct, o, d, t_min, **kw)
+
+        def twin():
+            return cluster_sweep.march_inputs_reference(ct, o, d, t_min,
+                                                        **kw)
+        before = cluster_sweep.MARCH_PREP_LAUNCHES
+        got = prep_outputs(kernels())
+        launches = cluster_sweep.MARCH_PREP_LAUNCHES - before
+        want = prep_outputs(twin())
+        torch.cuda.synchronize()
+        for (name, g), (_, w) in zip(got, want, strict=True):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"march_inputs {case}: {name} is {g.dtype} "
+                     f"{tuple(g.shape)}, the twin's {w.dtype} "
+                     f"{tuple(w.shape)}")
+            if g.dtype == torch.float32:
+                nan = torch.isnan(w)
+                same = (torch.equal(torch.isnan(g), nan)
+                        and torch.equal(g[~nan].view(torch.int32),
+                                        w[~nan].view(torch.int32)))
+            else:
+                same = torch.equal(g, w)
+            if not same:
+                fail(f"march_inputs {case}: the kernels' {name} is not the "
+                     f"twin's")
+        if launches != (2 if kw.get("sort_rays", True) else 1):
+            fail(f"march_inputs {case}: {launches} preparation launches")
+        with op_counter() as ops:
+            kernels()
+        with op_counter() as plain_ops:
+            twin()
+        ms = cuda_ms(kernels, torch, reps)
+        plain_ms = cuda_ms(twin, torch, reps)
+        dev_ms = {k: device_ms(kernels, torch, reps, k)
+                  for k in ("march_bin_kernel", "march_order_kernel")}
+        outs = {x.data_ptr(): x for _, x in got}   # active0 may be active
+        n_bytes = (nbytes(o, d, kw.get("active"), *kw.get("extras", ()))
+                   + nbytes(*outs.values()))
+        b_ms, b_by = bound(n_bytes, 0.0)
+        print(f"march_inputs {case} ({launches} preparation launches), "
+              f"bit-equal to the twin: {ms:.4f} ms "
+              f"({ops.n} aten ops dispatched), march_bin "
+              f"{ms_text(dev_ms['march_bin_kernel'])}, march_order "
+              f"{ms_text(dev_ms['march_order_kernel'])}; plain twin "
+              f"{plain_ms:.4f} ms ({plain_ops.n} aten ops), bound "
+              f"{b_ms * 1e3:.4f} us ({b_by}, {n_bytes / 1e6:.4f} MB) "
+              f"[{card}]", flush=True)
+        main[case] = (ms, plain_ms, b_ms, b_by, launches)
+    return main
+
+
 def draws_on_paths(run_cli, cli_draws, bunny_argv, out, card, cli, torch):
     """Phase 10 (module docstring), every launch counter reset just before
     each render and read just after; ``run_cli`` is phase 4's CLI runner,
@@ -2678,6 +2824,9 @@ def main() -> int:
     ap.add_argument("--launches", nargs="?", const=HERE, metavar="DIR",
                     help="profile the triangle world at 1 spp, with the "
                     "port imported from DIR, and list its kernels' launches")
+    ap.add_argument("--prep", action="store_true",
+                    help="phase 3f alone: the march's preparation kernels "
+                    "against their twin at the march cells' shapes, timed")
     ap.add_argument("--shade", action="store_true",
                     help="phase 3e alone: the shading kernel against its "
                     "twin on a chunk of each benchmark cell's scene, timed")
@@ -2695,6 +2844,10 @@ def main() -> int:
     if opts.shade:
         sys.path.insert(0, HERE)
         shade_kernel(torch.device(DEVICE), card_line())
+        return 0
+    if opts.prep:
+        sys.path.insert(0, HERE)
+        prep_kernels(torch.device(DEVICE), card_line())
         return 0
     sys.path.insert(0, HERE)
     try:
@@ -2738,8 +2891,9 @@ def main() -> int:
         for func, regs, st, ld in summary:
             print(f"  {name}: {kernel_label(func)}: ptxas {regs} registers, "
                   f"{st} bytes spill stores, {ld} bytes spill loads")
-        if name == "cluster_march" and any(st or ld for _, _, st, ld
-                                           in summary):
+        if name == "cluster_march" and any(
+                st or ld for func, _, st, ld in summary
+                if "cluster_march_kernel" in func):
             fail("the march kernel spills (ptxas above)")
 
     # 11a. the native host library, before any phase parses the bunny
@@ -2890,10 +3044,17 @@ def main() -> int:
     shade_main, nee_main, shade_paths, nee_paths = shade_kernel(dev, card)
     print(f"phase 3e took {time.perf_counter() - t3e:.1f} s")
 
+    # 3f. the march's preparation kernels against their twin, bit for bit,
+    # on the two march cells' queries
+    t3f = time.perf_counter()
+    prep_main = prep_kernels(dev, card)
+    print(f"phase 3f took {time.perf_counter() - t3f:.1f} s")
+
     # 4. the main paths through the CLI's code path; each render's draws
     # launches and draw signatures by its image's name, and its draws held
     # to their twin at its chunk
     cli_draws = {}
+    cli_prep = {}
 
     def run_cli(argv, out_png, env=None, hold=True):
         args = cli.build_parser().parse_args(
@@ -2907,6 +3068,7 @@ def main() -> int:
             img, seconds, cfg, stats = cli.render_cli(args)
             counts = read_counts()
             draws = read_draws()
+            cli_prep[name] = read_prep()
         cli_draws[name] = (draws, sorted(seen))
         if hold:
             hold_draws(f"render {name}", seen, draws,
@@ -2937,6 +3099,12 @@ def main() -> int:
     if march_launches <= 0 or counts[2] != 0:
         fail(f"the bunny path launched {counts[0]} march and {counts[2]} "
              f"window kernels")
+    # every march of the bunny path is a sorted closest-hit query (no
+    # light, no shadow query): march_bin and march_order before each
+    prep_launches = cli_prep["bunny"]
+    if prep_launches != 2 * march_launches:
+        fail(f"the bunny path launched {prep_launches} preparation kernels "
+             f"for {march_launches} marches, not two a march")
     mean = check_image("bunny", img_np, (360, 640, 3), 0.3, 0.95)
     report("bunny", seconds, cfg, stats, counts, mean)
     march_img = img_np
@@ -3135,7 +3303,17 @@ def main() -> int:
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         for name, (ms, plain_ms, b_ms, b_by) in zip(
-            ("shade_nee", "shade_nee_finish"), nee_main)]}))
+            ("shade_nee", "shade_nee_finish"), nee_main)] + [{
+        "name": "march_prep", "route": "cuda",
+        "source": "pathtracer_tpu_torch/csrc/cluster_march.cu",
+        "replaces": None, "launches": prep_launches,
+        "path_launches": {k: cli_prep[k] for k in (
+            "bunny", "cornell", "triangle", "bunny_rounds")},
+        "case_launches": {case: v[4] for case, v in prep_main.items()},
+        "max_abs_err": 0.0, "ms": prep_main[PREP_CASES[0]][0],
+        "plain_ms": prep_main[PREP_CASES[0]][1],
+        "bound_ms": prep_main[PREP_CASES[0]][2],
+        "bound_by": prep_main[PREP_CASES[0]][3], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

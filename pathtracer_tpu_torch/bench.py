@@ -200,6 +200,7 @@ def launch_counts() -> dict:
     from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
                                           shade, traversal, uniforms)
     return {"cluster_march": cluster_sweep.MARCH_LAUNCHES,
+            "march_prep": cluster_sweep.MARCH_PREP_LAUNCHES,
             "dense_sweep": pallas_sweep.SWEEP_LAUNCHES,
             "window_sweep": cluster_sweep.WINDOW_LAUNCHES,
             "ray_uniforms": uniforms.UNIFORMS_LAUNCHES,
@@ -213,6 +214,7 @@ def reset_launch_counts() -> None:
     from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
                                           shade, traversal, uniforms)
     cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
+    cluster_sweep.MARCH_PREP_LAUNCHES = 0
     pallas_sweep.SWEEP_LAUNCHES = 0
     uniforms.UNIFORMS_LAUNCHES = 0
     traversal.TRAVERSE_LAUNCHES = 0

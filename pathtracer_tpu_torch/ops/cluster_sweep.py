@@ -18,12 +18,24 @@ over the same cluster tables.
 6. unsort by ray id, unless the caller keeps the sorted order
    (``extras``, the sorted-wavefront integrator).
 
+Steps 1-3 and the residual sweep are :func:`march_inputs`. On the card,
+under the flat cull plan (no cull2, ``sup`` 1, at most
+``CULL2_CLUSTERS`` clusters), they are two more kernels of
+``csrc/cluster_march.cu``: ``march_bin`` (steps 1-2: each lane's bin key,
+then one stable ``torch.sort``; only when the rays are sorted) and
+``march_order`` (steps 1 and 3 and the residual: the sorted rays, phi,
+the gates, every chunk's order and the residual winners), which recompute
+each lane's entries instead of keeping the (C_reg, R) cull. Everywhere
+else, and always on the CPU, their plain twin
+:func:`march_inputs_reference` runs them as torch ops.
+
 Large scenes (2,048 regular clusters or more, :func:`cull_plan`) take the
 reference's two-level cull, "cull2": steps 1-3 work on superclusters of
 ``sup`` consecutive clusters (the per-ray cull stays near R x 512 entries
 instead of R x C_reg), each lane's gate is its farthest touched
 supercluster exit, and each chunk orders the clusters themselves by the
-interval cull of its ray bundle. The kernel does not change.
+interval cull of its ray bundle. The march kernel does not change; steps
+1-3 stay torch ops on every device.
 
 Exact: each chunk stops only once every lane's best hit precedes all its
 unvisited clusters. Ties between different primitives at bit-equal t may
@@ -37,9 +49,11 @@ full-width fallback for the rays still unresolved. Every sweep is one
 launch of the window kernel (``csrc/window_sweep.cu``).
 
 Each kernel has two implementations: the CUDA kernel for tensors on a GPU,
-and a plain PyTorch twin (``march_reference``, ``window_reference``) for
-tensors on the CPU. ``march`` and ``window_sweep`` pick by device only; on
-a GPU they launch the kernel or raise.
+and a plain PyTorch twin (``march_reference``, ``window_reference``,
+``march_inputs_reference``) for tensors on the CPU. ``march`` and
+``window_sweep`` pick by device only; on a GPU they launch the kernel or
+raise. ``march_inputs`` picks by what it observes: the device and the
+cull plan.
 """
 from __future__ import annotations
 
@@ -60,7 +74,10 @@ from pathtracer_tpu_torch.utils import metrics
 DEF_RAY_TILE = 128
 DEF_WINDOW = 4       # clusters per round's window
 DEF_MAX_ROUNDS = 6
-# the cull plan's default switch to the two-level cull, in regular clusters
+# the cull plan's default switch to the two-level cull, in regular clusters,
+# and the most the preparation kernels take under a flat plan (their boxes
+# and a chunk's order live in shared memory: kMaxPrepClusters in
+# csrc/cluster_march.cu)
 CULL2_CLUSTERS = 2048
 STRATEGIES = ("march", "rounds")
 # round key of a resolved lane: sorts after every cluster index
@@ -71,19 +88,38 @@ _RESOLVED_KEY = 0x3FFFFFFF
 # could otherwise be ordered wrongly.
 _ENTRY_MARGIN = 1e-4
 
-# Launches of the CUDA march and window kernels in this process (each wrapper
-# adds one per launch and nowhere else), and the march route's shadow
-# queries (one march each: on the card a launch that MARCH_LAUNCHES counts
-# too, elsewhere a call of the twin); callers reset them to 0 to count a
-# run.
+# Launches of the CUDA march, preparation (march_bin and march_order) and
+# window kernels in this process (each wrapper adds one per launch and
+# nowhere else), and the march route's shadow queries (one march each: on
+# the card a launch that MARCH_LAUNCHES counts too, elsewhere a call of the
+# twin); callers reset them to 0 to count a run.
 MARCH_LAUNCHES = 0
+MARCH_PREP_LAUNCHES = 0
 MARCH_SHADOW_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
-_MARCH_PROTOTYPES = {"cluster_march_launch": (
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
-    + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
-    + [ctypes.c_void_p] * 4)}
+# the most extras that ride march_order (PrepExtras::kMax in
+# csrc/cluster_march.cu)
+PREP_MAX_EXTRAS = 8
+
+
+class _PrepExtras(ctypes.Structure):
+    """march_order's PrepExtras: the 4-byte (R,) extras it gathers."""
+    _fields_ = [("src", ctypes.c_void_p * PREP_MAX_EXTRAS),
+                ("dst", ctypes.c_void_p * PREP_MAX_EXTRAS),
+                ("stride", ctypes.c_longlong * PREP_MAX_EXTRAS),
+                ("n", ctypes.c_int)]
+
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+_MARCH_PROTOTYPES = {
+    "cluster_march_launch": (
+        [_P] * 5 + [_I] * 4 + [_P] * 3 + [_I, _F, _F] + [_P] * 4),
+    "march_bin_launch": [_P] * 3 + [_L, _L] + [_P] * 2 + [_I, _F]
+    + [_P] * 3,
+    "march_order_launch": [_P] * 4 + [_L] + [_I] * 3 + [_P] * 2
+    + [_F, _F, _I] + [_P] * 3 + [_I, _I] + [_P] * 11 + [_PrepExtras, _P]}
 _WINDOW_PROTOTYPES = {"window_sweep_launch": (
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3)}
@@ -325,8 +361,137 @@ def march(phi, a, gate, ids, ents, cols, is_sphere, ranges, K: int,
 def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
                  active=None, extras=None, t_max=None, sort_rays=True,
                  cull2=None, sup=None):
-    """Steps 1-3 of the query (cull, bin, order) and the residual sweep;
-    ``sort_rays`` False keeps the caller's lane order (no binning sort).
+    """Steps 1-3 of the query (cull, bin, order) and the residual sweep:
+    :func:`march_inputs_reference`'s arguments and result.
+
+    On CUDA rays under the flat cull plan (no cull2, ``sup`` 1, at most
+    ``CULL2_CLUSTERS`` regular clusters), the preparation kernels
+    (``march_bin`` where ``sort_rays``, then ``march_order``) compute it,
+    bit-equal to the twin; they launch or raise (rays or extras that
+    require grad among what they refuse). Every other input takes the
+    twin."""
+    cull2, sup = cull_plan(ct.C_reg, cull2, sup)
+    if (o.device.type == "cuda" and not cull2 and sup == 1
+            and ct.C_reg <= CULL2_CLUSTERS):
+        return _march_inputs_cuda(ct, o, d, t_min, ray_tile, active, extras,
+                                  t_max, sort_rays)
+    return march_inputs_reference(ct, o, d, t_min, ray_tile=ray_tile,
+                                  active=active, extras=extras, t_max=t_max,
+                                  sort_rays=sort_rays, cull2=cull2, sup=sup)
+
+
+def _prep_launched(err: int, name: str, lanes: int) -> None:
+    """Raise on a failed launch; count it where it had lanes to take (the
+    entry point launches nothing for an empty wavefront)."""
+    global MARCH_PREP_LAUNCHES
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if lanes > 0:
+        MARCH_PREP_LAUNCHES += 1
+
+
+def _march_inputs_cuda(ct: ClusterTables, o, d, t_min, ray_tile, active,
+                       extras, t_max, sort_rays):
+    if t_max is None:
+        t_max = BIG
+    r = o.shape[0]
+    C_reg, K = ct.C_reg, ct.K
+    C_tot = ct.cols.shape[0]
+    r_pad = -(-r // ray_tile) * ray_tile
+    n_chunks = r_pad // ray_tile
+    if extras is not None and r_pad != r:
+        raise ValueError("extras mode needs a chunk-aligned wavefront")
+    if ray_tile % 32 != 0 or not 0 < ray_tile <= 1024:
+        raise ValueError("ray_tile must be a multiple of 32 up to 1024")
+    dev = o.device
+    o, d = o.contiguous(), d.contiguous()
+    checks = [("o", o, torch.float32, (r, 3)), ("d", d, torch.float32, (r, 3)),
+              ("cmin", ct.cmin, torch.float32, (C_reg, 3)),
+              ("cmax", ct.cmax, torch.float32, (C_reg, 3)),
+              ("cols", ct.cols, torch.float32, (C_tot, FEAT, OUTS * K)),
+              ("is_sphere", ct.is_sphere, torch.int32, (C_tot, 1, K)),
+              ("valid_row", ct.valid_row, torch.int32, (C_tot, 1, K))]
+    if active is not None:
+        active = active.contiguous()
+        checks.append(("active", active, torch.bool, (r,)))
+    for name, x, dtype, shape in checks:
+        _cuda_build.check_arg(x, name, dtype, shape, dev)
+    if sort_rays and extras is not None:
+        # the extras ride march_order: up to PREP_MAX_EXTRAS (r,) planes of
+        # 4-byte elements, strided or not (the integrator's are at most 8)
+        if len(extras) > PREP_MAX_EXTRAS:
+            raise ValueError(f"march_order takes at most {PREP_MAX_EXTRAS} "
+                             f"extras, got {len(extras)}")
+        for e in extras:
+            if e.requires_grad:
+                raise ValueError("an extra requires grad; pass it detached")
+            if e.dim() != 1 or e.shape[0] != r or e.element_size() != 4 \
+                    or e.device != dev:
+                raise ValueError(f"extras must be ({r},) planes of 4-byte "
+                                 f"elements on {dev}, got {e.dtype} "
+                                 f"{tuple(e.shape)} on {e.device}")
+    lib = _cuda_build.load("cluster_march", _MARCH_PROTOTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mask = active.data_ptr() if active is not None else None
+    t_min = float(t_min)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    order = None
+    if sort_rays:
+        key = empty(r_pad, torch.int32)
+        active0 = empty(r_pad, torch.bool)
+        _prep_launched(lib.march_bin_launch(
+            o.data_ptr(), d.data_ptr(), mask, r, r_pad, ct.cmin.data_ptr(),
+            ct.cmax.data_ptr(), C_reg, t_min, key.data_ptr(),
+            active0.data_ptr(), stream), "march_bin", r_pad)
+        order = rid = torch.sort(key, stable=True).indices
+    else:
+        rid = empty(r_pad, torch.int64)
+    o_s, d_s = empty((r_pad, 3)), empty((r_pad, 3))
+    active_s = empty(r_pad, torch.bool)
+    phi, a, gate = empty((r_pad, FEAT)), empty(r_pad), empty(r_pad)
+    ids = empty((n_chunks, C_reg + 1), torch.int32)
+    ents = empty((n_chunks, C_reg + 1))
+    t_res, b_res = empty(r_pad), empty(r_pad, torch.int32)
+    ride = _PrepExtras()
+    if order is not None and extras is not None:
+        sorted_extras = tuple(empty(r, e.dtype) for e in extras)
+        for i, (e, s) in enumerate(zip(extras, sorted_extras)):
+            ride.src[i], ride.dst[i] = e.data_ptr(), s.data_ptr()
+            ride.stride[i] = e.stride(0)
+        ride.n = len(extras)
+        extras = sorted_extras
+    res_row = K - K_RES
+    _prep_launched(lib.march_order_launch(
+        o.data_ptr(), d.data_ptr(), mask,
+        None if order is None else order.data_ptr(), r, n_chunks, ray_tile,
+        C_reg, ct.cmin.data_ptr(), ct.cmax.data_ptr(), t_min, float(t_max),
+        int(t_max < BIG * 0.5), ct.cols[C_reg].data_ptr(),
+        ct.is_sphere[C_reg, 0, res_row:].data_ptr(),
+        ct.valid_row[C_reg, 0, res_row:].data_ptr(), K, C_reg * K + res_row,
+        o_s.data_ptr(), d_s.data_ptr(), active_s.data_ptr(),
+        None if order is not None else rid.data_ptr(), phi.data_ptr(),
+        a.data_ptr(), gate.data_ptr(), ids.data_ptr(), ents.data_ptr(),
+        t_res.data_ptr(), b_res.data_ptr(), ride, stream), "march_order",
+        r_pad)
+    if order is None:
+        active0 = active_s
+    args = (phi, a, gate, ids, ents, ct.cols, ct.is_sphere.view(C_tot, K),
+            ct.ranges, K, t_min, float(t_max), ray_tile)
+    return dict(o=o_s, d=d_s, active=active_s, active0=active0, rid=rid,
+                extras=extras, args=args, t_res=t_res, b_res=b_res, r=r,
+                cull2=False, sup=1)
+
+
+def march_inputs_reference(ct: ClusterTables, o, d, t_min,
+                           ray_tile=DEF_RAY_TILE, active=None, extras=None,
+                           t_max=None, sort_rays=True, cull2=None, sup=None):
+    """Plain PyTorch twin of the preparation kernels, and the only
+    implementation of the plans they do not take: steps 1-3 of the query
+    (cull, bin, order) and the residual sweep as torch ops; ``sort_rays``
+    False keeps the caller's lane order (no binning sort).
 
     The cull plan (:func:`cull_plan`, the reference's rule from C_reg where
     ``cull2`` or ``sup`` is None): with ``sup`` > 1 the per-ray cull, the

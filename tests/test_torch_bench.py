@@ -102,9 +102,9 @@ def test_bench_line_and_counts_match_jax(scene):
     assert 0 < rec["executed_queries"] <= rec["nominal_queries"]
     assert (rec["shadow_queries"] > 0) == (scene == "cornell")
     assert rec["pair_tests"] == 0 and rec["launches"] == {
-        "cluster_march": 0, "dense_sweep": 0, "window_sweep": 0,
-        "ray_uniforms": 0, "bvh_traverse": 0, "shade_bounce": 0,
-        "shade_nee": 0, "shade_nee_finish": 0}
+        "cluster_march": 0, "march_prep": 0, "dense_sweep": 0,
+        "window_sweep": 0, "ray_uniforms": 0, "bvh_traverse": 0,
+        "shade_bounce": 0, "shade_nee": 0, "shade_nee_finish": 0}
 
 
 def test_bench_stamps_its_environment_knobs():

@@ -659,6 +659,209 @@ def test_march_kernel_matches_twin_under_cull2(gpu, sort_rays):
     assert s_k.sum() > 0 and (b_k >= 0).sum() > 1000
 
 
+PREP_FIELDS = ("o", "d", "active", "active0", "rid", "t_res", "b_res")
+
+
+def _prep_case(case, dev):
+    """(tables, o, d, t_min, march_inputs kwargs) of a march cell's query
+    at its shape: the bunny's 16,384-lane sorted wavefront with the
+    integrator's extras (three attenuation planes, strided as its first
+    bounce holds them, and the flags word; a tenth of the lanes dead), and
+    the combined scene's 129,600-lane chunk
+    (no multiple of the ray tile) as its sorted closest-hit query and its
+    unsorted shadow query (t_min K_SHADOW_T_MIN, t_max 1)."""
+    from pathtracer_tpu_torch.presets import combined_scene
+    rng = np.random.default_rng(21)
+    if case == "bunny_extras":
+        scene, cam = get_world("bunny", device=dev)
+        ct = build_cluster_tables(scene, K=64)
+        n = 16384
+        o, d = _wavefront("camera", cam, n, dev)
+        alive = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        atten = torch.from_numpy(rng.random((n, 3), dtype=np.float32)).to(dev)
+        flags = torch.arange(n, dtype=torch.int32, device=dev)
+        return ct, o, d, T_MIN, dict(active=alive,
+                                     extras=(*atten.unbind(1), flags))
+    scene, cam = combined_scene(device=dev)
+    ct = build_cluster_tables(scene, K=64)
+    n = 129600
+    o, d = _wavefront("camera", cam, n, dev)
+    if case == "combined_closest":
+        return ct, o, d, T_MIN, {}
+    assert case == "combined_shadow"
+    _, t, valid = cluster_sweep.cluster_march(ct, o, d, T_MIN)
+    p = o + t[:, None] * d
+    lo = ct.cmin.amin(dim=0).cpu().numpy()
+    hi = ct.cmax.amax(dim=0).cpu().numpy()
+    light = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).astype(
+        np.float32)).to(dev)
+    seg = torch.where(valid[:, None], light - p, 0.0)
+    return ct, p, seg, K_SHADOW_T_MIN, dict(active=valid, t_max=1.0,
+                                            sort_rays=False)
+
+
+def _same_bits(name, got, want):
+    """Equal to the bit; a NaN matches any NaN (its bits are no part of
+    the result, which is only compared)."""
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    if got.dtype == torch.float32:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), name
+        got, want = got[~nan].view(torch.int32), want[~nan].view(torch.int32)
+    assert torch.equal(got, want), name
+
+
+def _prep_bit_equal(ct, o, d, t_min, kw):
+    """march_inputs on the card against its twin on the same inputs: every
+    output to the bit. Returns (kernels' dict, launches counted)."""
+    before = cluster_sweep.MARCH_PREP_LAUNCHES
+    got = cluster_sweep.march_inputs(ct, o, d, t_min, **kw)
+    launched = cluster_sweep.MARCH_PREP_LAUNCHES - before
+    want = cluster_sweep.march_inputs_reference(ct, o, d, t_min, **kw)
+    for name in PREP_FIELDS:
+        _same_bits(name, got[name], want[name])
+    for name, g, w in zip(("phi", "a", "gate", "ids", "ents"),
+                          got["args"][:5], want["args"][:5]):
+        _same_bits(name, g, w)
+    for x, y in zip(got["args"][5:], want["args"][5:], strict=True):
+        assert torch.equal(x, y) if torch.is_tensor(x) else x == y
+    if want["extras"] is None:
+        assert got["extras"] is None
+    else:
+        for g, w in zip(got["extras"], want["extras"], strict=True):
+            _same_bits("extras", g, w)
+    return got, launched
+
+
+@pytest.mark.parametrize("case", ["bunny_extras", "combined_closest",
+                                  "combined_shadow"])
+def test_march_prep_kernels_match_twin_at_the_cells_shapes(gpu, case):
+    """The preparation kernels at the two march cells' shapes: every
+    output bit-equal to the twin; two launches a sorted query (march_bin,
+    march_order), one an unsorted one."""
+    ct, o, d, t_min, kw = _prep_case(case, gpu)
+    q, launched = _prep_bit_equal(ct, o, d, t_min, kw)
+    assert launched == (1 if kw.get("sort_rays") is False else 2)
+    assert bool(q["active"].any()) and int((q["b_res"] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["bunny_extras", "combined_closest",
+                                  "combined_shadow"])
+def test_march_prep_kernels_keep_the_winners(gpu, case, monkeypatch):
+    """cluster_march through the kernels returns what it returns through
+    the twin (the parent's path), every tensor to the bit."""
+    ct, o, d, t_min, kw = _prep_case(case, gpu)
+    got = cluster_sweep.cluster_march(ct, o, d, t_min, **kw)
+    monkeypatch.setattr(cluster_sweep, "march_inputs",
+                        cluster_sweep.march_inputs_reference)
+    before = cluster_sweep.MARCH_PREP_LAUNCHES
+    want = cluster_sweep.cluster_march(ct, o, d, t_min, **kw)
+    assert cluster_sweep.MARCH_PREP_LAUNCHES == before
+    for g, w in zip(got, want, strict=True):
+        if isinstance(g, tuple):
+            for gg, ww in zip(g, w, strict=True):
+                _same_bits("extras", gg, ww)
+        else:
+            _same_bits("result", g, w)
+    assert int(got[2].sum()) > 100
+
+
+@pytest.mark.parametrize("sort_rays", [True, False])
+@pytest.mark.parametrize("ray_tile", [32, 96, 256, 1024])
+@pytest.mark.parametrize("n", [1, 129, 1001])
+def test_march_prep_kernels_tiles_and_ragged_counts(gpu, sort_rays,
+                                                    ray_tile, n):
+    """Chunks of 32 to 1,024 lanes and wavefronts that are no multiple of
+    the chunk, with dead lanes, sorted and not."""
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, n, gpu)
+    d[::3] = 0.0
+    _, launched = _prep_bit_equal(ct, o, d, T_MIN, dict(
+        ray_tile=ray_tile, sort_rays=sort_rays))
+    assert launched == (2 if sort_rays else 1)
+
+
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_march_prep_kernels_on_the_level2_bunny(gpu, sort_rays):
+    """The level-2 bunny's flat plan (905 clusters: the boxes and every
+    chunk's order well past the main path's 57) on a 57,600-ray camera
+    wavefront, sorted and not: bit-equal to the twin."""
+    from pathtracer_tpu_torch.scene.bunny import bunny_world
+    scene, cam = bunny_world(subdivide=2, device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    assert ct.C_reg == 905
+    o, d = _wavefront("camera", cam, 57600, gpu)
+    q, launched = _prep_bit_equal(ct, o, d, T_MIN,
+                                  dict(sort_rays=sort_rays))
+    assert launched == (2 if sort_rays else 1)
+    assert q["args"][3].shape == (450, 906)
+
+
+def test_march_prep_extras_ride_the_kernel(gpu):
+    """Up to eight extras of 4-byte elements, contiguous or strided, ride
+    march_order, bit-equal to the twin's gather; a bool or int64 plane, a
+    ninth plane and one that requires grad are refused before any
+    launch."""
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    n = 1024
+    o, d = _wavefront("bounce", cam, n, gpu)
+    rng = np.random.default_rng(22)
+    planes = torch.from_numpy(rng.random((n, 9), dtype=np.float32)).to(gpu)
+    extras = (*planes.unbind(1)[:6], planes[:, 6].contiguous(),
+              torch.arange(n, dtype=torch.int32, device=gpu))
+    q, launched = _prep_bit_equal(ct, o, d, T_MIN, dict(extras=extras))
+    assert launched == 2 and len(q["extras"]) == len(extras)
+    assert [x.dtype for x in q["extras"]] == [x.dtype for x in extras]
+    before = cluster_sweep.MARCH_PREP_LAUNCHES
+    for bad in ((planes[:, 0] > 0.5,), (torch.arange(n, device=gpu),),
+                (*extras, planes[:, 8]),
+                (planes[:, 0].clone().requires_grad_(),)):
+        with pytest.raises(ValueError):
+            cluster_sweep.march_inputs(ct, o, d, T_MIN, extras=bad)
+    assert cluster_sweep.MARCH_PREP_LAUNCHES == before
+
+
+def test_march_prep_kernels_leave_other_plans_to_the_twin(gpu):
+    """cull2 and an explicit sup > 1 take the twin on the card: no
+    preparation launch; an empty wavefront launches nothing and counts
+    none."""
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, 512, gpu)
+    before = cluster_sweep.MARCH_PREP_LAUNCHES
+    for kw in (dict(cull2=True), dict(sup=4)):
+        q = cluster_sweep.march_inputs(ct, o, d, T_MIN, **kw)
+        assert (q["cull2"], q["sup"]) != (False, 1)
+    for sort_rays in (True, False):
+        _, launched = _prep_bit_equal(ct, o[:0], d[:0], T_MIN,
+                                      dict(sort_rays=sort_rays))
+        assert launched == 0
+    assert cluster_sweep.MARCH_PREP_LAUNCHES == before
+    cluster_sweep.march_inputs(ct, o, d, T_MIN)
+    assert cluster_sweep.MARCH_PREP_LAUNCHES == before + 2
+
+
+def test_march_prep_wrapper_rejects_bad_inputs(gpu):
+    scene, cam = get_world("bunny", device=gpu)
+    ct = build_cluster_tables(scene, K=64)
+    o, d = _wavefront("camera", cam, 256, gpu)
+    with pytest.raises(TypeError):
+        cluster_sweep.march_inputs(ct, o.double(), d, T_MIN)
+    with pytest.raises(ValueError):
+        cluster_sweep.march_inputs(ct, o, d, T_MIN, ray_tile=100)
+    with pytest.raises(TypeError):
+        cluster_sweep.march_inputs(ct, o, d, T_MIN,
+                                   active=torch.ones(256, device=gpu))
+    with pytest.raises(ValueError):
+        cluster_sweep.march_inputs(ct, o, d, T_MIN,
+                                   active=torch.ones(256, dtype=torch.bool))
+    with pytest.raises(ValueError, match="requires grad"):
+        cluster_sweep.march_inputs(ct, o, d.clone().requires_grad_(), T_MIN)
+
+
 def test_checkpoint_resume_on_the_card(gpu, tmp_path):
     """A render in passes of 2 spp stopped after its first pass and
     resumed equals the uninterrupted pass render on the card, bit for
