@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preset", default=None,
                    help="named configuration (cornell-direct / "
                         "cornell-full / cornell-diff / bunny / "
-                        "combined-1080p); overrides scene, size, spp and "
+                        "combined-1080p / bunny-l4); overrides scene, size, spp and "
                         "depth")
     p.add_argument("--scale", type=float, default=1.0,
                    help="resolution and spp factor applied to --preset")

@@ -195,31 +195,41 @@ def device_stamp(on_card: bool) -> dict:
             "temperature": None, "count": torch.cuda.device_count()}
 
 
+# The wrapper counters, one row each: (the name in a line's ``launches``,
+# the module of ``pathtracer_tpu_torch.ops`` that keeps it, its attribute).
+# "march_shadow" counts the march route's shadow queries and
+# "march_prep_twin" its preparations run as torch ops (the two-level
+# cull); the others count kernel launches.
+LAUNCH_COUNTERS = (
+    ("cluster_march", "cluster_sweep", "MARCH_LAUNCHES"),
+    ("march_prep", "cluster_sweep", "MARCH_PREP_LAUNCHES"),
+    ("dense_sweep", "pallas_sweep", "SWEEP_LAUNCHES"),
+    ("window_sweep", "cluster_sweep", "WINDOW_LAUNCHES"),
+    ("ray_uniforms", "uniforms", "UNIFORMS_LAUNCHES"),
+    ("bvh_traverse", "traversal", "TRAVERSE_LAUNCHES"),
+    ("shade_bounce", "shade", "SHADE_LAUNCHES"),
+    ("shade_nee", "shade", "SHADE_NEE_LAUNCHES"),
+    ("shade_nee_finish", "shade", "SHADE_NEE_FINISH_LAUNCHES"),
+    ("march_shadow", "cluster_sweep", "MARCH_SHADOW_LAUNCHES"),
+    ("march_prep_twin", "cluster_sweep", "MARCH_PREP_TWIN"))
+
+
+def _counters():
+    import importlib
+    for name, module, attr in LAUNCH_COUNTERS:
+        yield name, importlib.import_module(
+            f"pathtracer_tpu_torch.ops.{module}"), attr
+
+
 def launch_counts() -> dict:
-    """Each kernel wrapper's launches since its counter was last reset."""
-    from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
-                                          shade, traversal, uniforms)
-    return {"cluster_march": cluster_sweep.MARCH_LAUNCHES,
-            "march_prep": cluster_sweep.MARCH_PREP_LAUNCHES,
-            "dense_sweep": pallas_sweep.SWEEP_LAUNCHES,
-            "window_sweep": cluster_sweep.WINDOW_LAUNCHES,
-            "ray_uniforms": uniforms.UNIFORMS_LAUNCHES,
-            "bvh_traverse": traversal.TRAVERSE_LAUNCHES,
-            "shade_bounce": shade.SHADE_LAUNCHES,
-            "shade_nee": shade.SHADE_NEE_LAUNCHES,
-            "shade_nee_finish": shade.SHADE_NEE_FINISH_LAUNCHES}
+    """Each wrapper counter's value since it was last reset, by name
+    (:data:`LAUNCH_COUNTERS`)."""
+    return {name: getattr(module, attr) for name, module, attr in _counters()}
 
 
 def reset_launch_counts() -> None:
-    from pathtracer_tpu_torch.ops import (cluster_sweep, pallas_sweep,
-                                          shade, traversal, uniforms)
-    cluster_sweep.MARCH_LAUNCHES = cluster_sweep.WINDOW_LAUNCHES = 0
-    cluster_sweep.MARCH_PREP_LAUNCHES = 0
-    pallas_sweep.SWEEP_LAUNCHES = 0
-    uniforms.UNIFORMS_LAUNCHES = 0
-    traversal.TRAVERSE_LAUNCHES = 0
-    shade.SHADE_LAUNCHES = shade.SHADE_NEE_LAUNCHES = 0
-    shade.SHADE_NEE_FINISH_LAUNCHES = 0
+    for _, module, attr in _counters():
+        setattr(module, attr, 0)
 
 
 def env_knobs() -> dict:

@@ -35,7 +35,8 @@ reference's two-level cull, "cull2": steps 1-3 work on superclusters of
 instead of R x C_reg), each lane's gate is its farthest touched
 supercluster exit, and each chunk orders the clusters themselves by the
 interval cull of its ray bundle. The march kernel does not change; steps
-1-3 stay torch ops on every device.
+1-3 stay torch ops on every device, each query's under a ``pt.cull2``
+span and counted by ``MARCH_PREP_TWIN``.
 
 Exact: each chunk stops only once every lane's best hit precedes all its
 unvisited clusters. Ties between different primitives at bit-equal t may
@@ -90,11 +91,14 @@ _ENTRY_MARGIN = 1e-4
 
 # Launches of the CUDA march, preparation (march_bin and march_order) and
 # window kernels in this process (each wrapper adds one per launch and
-# nowhere else), and the march route's shadow queries (one march each: on
+# nowhere else), the march route's shadow queries (one march each: on
 # the card a launch that MARCH_LAUNCHES counts too, elsewhere a call of the
-# twin); callers reset them to 0 to count a run.
+# twin) and the preparations run as torch ops on a plan the preparation
+# kernels do not take (march_inputs' twin under cull2 or superclusters);
+# callers reset them to 0 to count a run.
 MARCH_LAUNCHES = 0
 MARCH_PREP_LAUNCHES = 0
+MARCH_PREP_TWIN = 0
 MARCH_SHADOW_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
@@ -369,15 +373,23 @@ def march_inputs(ct: ClusterTables, o, d, t_min, ray_tile=DEF_RAY_TILE,
     (``march_bin`` where ``sort_rays``, then ``march_order``) compute it,
     bit-equal to the twin; they launch or raise (rays or extras that
     require grad among what they refuse). Every other input takes the
-    twin."""
+    twin; on a plan the kernels do not take (cull2, ``sup`` > 1 or more
+    than ``CULL2_CLUSTERS`` clusters), on any device, that call is a
+    ``pt.cull2`` span (inside the caller's ``pt.cull``) and adds one to
+    ``MARCH_PREP_TWIN``."""
+    global MARCH_PREP_TWIN
     cull2, sup = cull_plan(ct.C_reg, cull2, sup)
-    if (o.device.type == "cuda" and not cull2 and sup == 1
-            and ct.C_reg <= CULL2_CLUSTERS):
+    flat = not cull2 and sup == 1 and ct.C_reg <= CULL2_CLUSTERS
+    if flat and o.device.type == "cuda":
         return _march_inputs_cuda(ct, o, d, t_min, ray_tile, active, extras,
                                   t_max, sort_rays)
-    return march_inputs_reference(ct, o, d, t_min, ray_tile=ray_tile,
-                                  active=active, extras=extras, t_max=t_max,
-                                  sort_rays=sort_rays, cull2=cull2, sup=sup)
+    kw = dict(ray_tile=ray_tile, active=active, extras=extras, t_max=t_max,
+              sort_rays=sort_rays, cull2=cull2, sup=sup)
+    if flat:
+        return march_inputs_reference(ct, o, d, t_min, **kw)
+    MARCH_PREP_TWIN += 1
+    with metrics.span("pt.cull2"):
+        return march_inputs_reference(ct, o, d, t_min, **kw)
 
 
 def _prep_launched(err: int, name: str, lanes: int) -> None:
@@ -647,7 +659,8 @@ def cluster_march(ct: ClusterTables, o, d, t_min,
 
     The host's work before the launch, :func:`march_inputs`, is a
     ``pt.cull`` span (``utils/metrics.span``), inside the caller's
-    ``pt.query``."""
+    ``pt.query``; on a plan that the preparation kernels do not take, its
+    torch ops are a ``pt.cull2`` span inside it."""
     with metrics.span("pt.cull"):
         q = march_inputs(ct, o, d, t_min, ray_tile=ray_tile, active=active,
                          extras=extras, t_max=t_max, sort_rays=sort_rays,

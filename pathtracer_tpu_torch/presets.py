@@ -11,6 +11,8 @@ sizes; ``python -m pathtracer_tpu_torch --preset <name>`` runs one.
 | cornell-diff     | Cornell spheres, 64x64, 8 spp, depth 2, NEE, brute:   |
 |                  | the fixture of the differentiable pass (render/diff)  |
 | combined-1080p   | bunny inside the Cornell room, 1080p, 512 spp         |
+| bunny-l4         | the bunny world split 4:1 four times (925,699 prims), |
+|                  | 640x360, 128 spp, depth 4: the two-level cull         |
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from pathtracer_tpu_torch.scene.scene import Scene, SceneBuilder
 from pathtracer_tpu_torch.scene.standalone_assets import bunny_standin
 
 PRESETS = ("cornell-direct", "cornell-full", "cornell-diff", "bunny",
-           "combined-1080p")
+           "combined-1080p", "bunny-l4")
 
 
 def combined_scene(aspect: float = 16.0 / 9.0, obj_path: str | None = None,
@@ -93,5 +95,10 @@ def get_preset(name: str, device="cuda"):
             width=1920, height=1080, spp=512, max_depth=4, sky=False,
             nee=True, stratify=True, accel="auto", ray_chunk=129600,
             scene="combined")
+    if name == "bunny-l4":
+        scene, cam = bunny_world(subdivide=4, device=device)
+        return scene, cam, RenderConfig(
+            width=640, height=360, spp=128, max_depth=4, accel="auto",
+            scene="bunny_fine")
     raise ValueError(f"unknown preset {name!r}; available: "
                      f"{' / '.join(PRESETS)}")

@@ -72,12 +72,29 @@ def scene_from_numpy(fields: dict, device="cuda") -> Scene:
                     for name in Scene._fields})
 
 
+def triangle_rows(v0, v1, v2):
+    """(e1, e2, unit face normal) of triangles given as (N, 3) float32
+    corner arrays, in one numpy pass. The normal's length is each row's
+    ``n.dot(n)`` (numpy's float32 dot, as ``np.linalg.norm`` of one row
+    computes it: a batched matmul of (1, 3) by (3, 1) takes the same
+    routine), so the rows are bit-equal to building the triangles one at
+    a time; a zero-length normal stays as it is."""
+    e1, e2 = v1 - v0, v2 - v0
+    n = np.ascontiguousarray(np.cross(e1, e2))
+    norm = np.sqrt(np.matmul(n[:, None, :], n[:, :, None])[:, 0, 0])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        unit = n / norm[:, None]
+    return e1, e2, np.where((norm > 0)[:, None], unit, n)
+
+
 class SceneBuilder:
     """Host-side scene assembly in numpy, as in the reference's
-    SceneBuilder, producing a Scene on ``device``."""
+    SceneBuilder, producing a Scene on ``device``. Primitives are kept as
+    blocks of rows (a sphere or a triangle one row, a mesh all of its
+    faces), concatenated in order by :meth:`build`."""
 
     def __init__(self):
-        self._prims = []      # (type, v0, e1, e2, radius, normal, mat)
+        self._blocks = []     # (type, v0, e1, e2, radius, normal, mat)
         self._mats = []       # (type, albedo, fuzz, ir, emit, tex_id)
         self._textures = []
 
@@ -107,44 +124,39 @@ class SceneBuilder:
         self._textures.append(np.asarray(image, np.float32))
         return len(self._textures) - 1
 
+    def _add_rows(self, ptype, v0, e1, e2, normal, mat, radius=0.0):
+        n = v0.shape[0]
+        self._blocks.append((np.full(n, ptype, np.int32), v0, e1, e2,
+                             np.broadcast_to(np.float32(radius), (n,)),
+                             normal, np.full(n, int(mat), np.int32)))
+
     def add_sphere(self, center, radius: float, mat: int):
         """Signed radius; AABB from |radius|."""
-        c = np.asarray(center, np.float32)
-        self._prims.append((PRIM_SPHERE, c, np.zeros(3, np.float32),
-                            np.zeros(3, np.float32), np.float32(radius),
-                            np.zeros(3, np.float32), int(mat)))
+        c = np.asarray(center, np.float32).reshape(1, 3)
+        z = np.zeros((1, 3), np.float32)
+        self._add_rows(PRIM_SPHERE, c, z, z, z, mat, radius)
 
     def add_triangle(self, v0, v1, v2, mat: int):
         """Precomputes edges and the unit face normal."""
-        v0 = np.asarray(v0, np.float32)
-        v1 = np.asarray(v1, np.float32)
-        v2 = np.asarray(v2, np.float32)
-        e1, e2 = v1 - v0, v2 - v0
-        n = np.cross(e1, e2)
-        norm = np.linalg.norm(n)
-        n = n / norm if norm > 0 else n
-        self._prims.append((PRIM_TRIANGLE, v0, e1.astype(np.float32),
-                            e2.astype(np.float32), np.float32(0.0),
-                            n.astype(np.float32), int(mat)))
+        v0, v1, v2 = (np.asarray(v, np.float32).reshape(1, 3)
+                      for v in (v0, v1, v2))
+        self._add_rows(PRIM_TRIANGLE, v0, *triangle_rows(v0, v1, v2), mat)
 
     def add_mesh(self, vertices, faces, mat: int):
-        """Expand an indexed triangle mesh into triangle rows."""
+        """Expand an indexed triangle mesh into triangle rows, face by face
+        in order, as :meth:`add_triangle` would one at a time."""
         vertices = np.asarray(vertices, np.float32)
-        faces = np.asarray(faces, np.int64)
-        for f in faces:
-            self.add_triangle(vertices[f[0]], vertices[f[1]],
-                              vertices[f[2]], mat)
+        faces = np.asarray(faces, np.int64).reshape(-1, 3)
+        if faces.shape[0] == 0:
+            return
+        v0, v1, v2 = (vertices[faces[:, k]] for k in range(3))
+        self._add_rows(PRIM_TRIANGLE, v0, *triangle_rows(v0, v1, v2), mat)
 
     def build(self, device="cuda") -> Scene:
-        if not self._prims:
+        if not self._blocks:
             raise ValueError("empty scene")
-        ptype = np.array([p[0] for p in self._prims], np.int32)
-        v0 = np.stack([p[1] for p in self._prims])
-        e1 = np.stack([p[2] for p in self._prims])
-        e2 = np.stack([p[3] for p in self._prims])
-        radius = np.array([p[4] for p in self._prims], np.float32)
-        tri_n = np.stack([p[5] for p in self._prims])
-        pmat = np.array([p[6] for p in self._prims], np.int32)
+        (ptype, v0, e1, e2, radius, tri_n, pmat) = (
+            np.concatenate(col) for col in zip(*self._blocks))
 
         is_sphere = (ptype == PRIM_SPHERE)[:, None]
         r_abs = np.abs(radius)[:, None]

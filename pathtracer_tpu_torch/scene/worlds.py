@@ -126,7 +126,10 @@ WORLDS = {
 
 def get_world(name: str, device="cuda", **kw) -> Tuple[Scene, Camera]:
     """(scene, camera) of a named scene on ``device``: test, triangle,
-    random, cornell, bunny or combined."""
+    random, cornell, bunny, bunny_fine or combined. "bunny_fine" is the
+    bunny world split 4:1 ``subdivide`` times (a required keyword, at
+    least 1): :func:`~pathtracer_tpu_torch.scene.bunny.bunny_world` with
+    that ``subdivide``."""
     if name in WORLDS:
         return WORLDS[name](device=device, **kw)
     if name == "cornell":
@@ -135,8 +138,15 @@ def get_world(name: str, device="cuda", **kw) -> Tuple[Scene, Camera]:
     if name == "bunny":
         from pathtracer_tpu_torch.scene.bunny import bunny_world
         return bunny_world(device=device, **kw)
+    if name == "bunny_fine":
+        from pathtracer_tpu_torch.scene.bunny import bunny_world
+        level = kw.pop("subdivide", None)
+        if level is None or int(level) < 1:
+            raise ValueError(f"scene 'bunny_fine' needs subdivide >= 1, got "
+                             f"{level!r}")
+        return bunny_world(device=device, subdivide=int(level), **kw)
     if name == "combined":
         from pathtracer_tpu_torch.presets import combined_scene
         return combined_scene(device=device, **kw)
     raise ValueError(f"unknown scene {name!r}; available: "
-                     f"test/triangle/random/cornell/bunny/combined")
+                     f"test/triangle/random/cornell/bunny/bunny_fine/combined")

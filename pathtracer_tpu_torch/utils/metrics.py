@@ -7,8 +7,11 @@
   (a bounce's next-event-estimation work, its shadow query included),
   ``pt.query`` (a closest-hit or shadow query, at its call site),
   ``pt.cull`` (the cluster march's host work before its launch,
-  ``ops/cluster_sweep.march_inputs``, inside its ``pt.query``) and
-  ``pt.wait`` (a host read of a device value on the render path);
+  ``ops/cluster_sweep.march_inputs``, inside its ``pt.query``),
+  ``pt.cull2`` (inside a ``pt.cull``: the preparation run as torch ops,
+  ``march_inputs_reference``, on a cull plan that the preparation kernels
+  do not take, the two-level cull or superclusters) and ``pt.wait`` (a
+  host read of a device value on the render path);
 - :func:`mrays_per_s`: the nominal throughput, pixels x spp x depth
   closest-hit queries per wall-second;
 - :func:`trace_context`: a ``torch.profiler`` scope that writes a Chrome
@@ -167,7 +170,8 @@ def span(name: str, args=None):
     Spans nest on the host thread: ``pt.pass`` holds the ``pt.bounce``
     trips of its chunks, a bounce its ``pt.query`` calls and, under NEE,
     its ``pt.light`` spans, which hold the shadow queries; a march
-    query holds its ``pt.cull``; ``pt.wait`` sits where the host waits
+    query holds its ``pt.cull``, and that its ``pt.cull2`` on the
+    two-level cull; ``pt.wait`` sits where the host waits
     (the bounce loop's test sits between bounces). Their times are on the
     profiler's clock, the one its device intervals are on, so an idle
     stretch of the device falls inside the span the host was in. Outside :func:`trace_context` they stay out of
@@ -185,8 +189,8 @@ def trace_context(log_dir: Optional[str]) -> Iterator[None]:
     there is one) when ``log_dir`` is set, writing the Chrome trace
     ``log_dir/trace.json`` on exit; a no-op otherwise. The trace carries
     the program's spans (:func:`span`: ``pt.pass``, ``pt.bounce``,
-    ``pt.light``, ``pt.query``, ``pt.cull``, ``pt.wait``) as ranges
-    around the work they hold.
+    ``pt.light``, ``pt.query``, ``pt.cull``, ``pt.cull2``, ``pt.wait``)
+    as ranges around the work they hold.
     Synchronise inside the scope, so the card's work falls in it:
 
         with trace_context("out/trace"):

@@ -104,7 +104,8 @@ def test_bench_line_and_counts_match_jax(scene):
     assert rec["pair_tests"] == 0 and rec["launches"] == {
         "cluster_march": 0, "march_prep": 0, "dense_sweep": 0,
         "window_sweep": 0, "ray_uniforms": 0, "bvh_traverse": 0,
-        "shade_bounce": 0, "shade_nee": 0, "shade_nee_finish": 0}
+        "shade_bounce": 0, "shade_nee": 0, "shade_nee_finish": 0,
+        "march_shadow": 0, "march_prep_twin": 0}
 
 
 def test_bench_stamps_its_environment_knobs():
